@@ -1,6 +1,6 @@
 """Predictive health scoring, ported to PyTorch.
 
 telemetry.py holds the probe-telemetry ring and the in-daemon scorer,
-predictor.py the model and its forward pass, convert.py the weight
-format, train.py the recorded-trace replay.
+predictor.py the model, its forward pass and its training step,
+convert.py the weight format, train.py training, export and evaluation.
 """

@@ -40,3 +40,9 @@ def load_npz(path: str | Path) -> HealthModel:
     """A CPU HealthModel from an exported weights .npz."""
     with np.load(path) as z:
         return params_from_numpy({name: z[name] for name in PARAM_NAMES})
+
+
+def save_npz(model: HealthModel, path: str | Path) -> None:
+    """Write *model* as an .npz the scorers load: keys w1..b3, float32,
+    reference layout (the reference's health.train.export format)."""
+    np.savez(path, **params_to_numpy(model))

@@ -4,10 +4,15 @@ A small MLP scores a window of health-probe telemetry per peer
 (features per tick as produced by telemetry.normalize_tick) to a failure
 probability, as manatee_tpu/health/predictor.py does.  The weights keep
 that module's layout, [in, out], so exported arrays are the reference's
-arrays.  ``predict`` on a CUDA tensor launches the hand-written K1 kernel
-(kernels/mlp_forward.py); on a CPU tensor it runs the plain version.
+arrays.  Each device function dispatches on where its tensors lie: a
+CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
+PyTorch version beside it.
 
-The training half (loss, train step, mesh step) is not ported yet.
+    predict                K1  kernels/mlp_forward.py
+    train_step             K2  kernels/mlp_train.py (K2a + K2b)
+    make_mesh_train_step   K3  K2's kernels on each rank's shard + one
+                               torch.distributed all-reduce
+    synthetic_from_draws   K4  kernels/synthetic_batch.py
 """
 
 from __future__ import annotations
@@ -22,6 +27,17 @@ from manatee_tpu_torch.kernels.mlp_forward import (
     mlp_forward,
     mlp_forward_plain,
 )
+from manatee_tpu_torch.kernels.mlp_train import (
+    grad_sums_plain,
+    loss_plain,
+    mlp_sgd_apply,
+    mlp_train_partials,
+    sgd_apply_plain,
+)
+from manatee_tpu_torch.kernels.synthetic_batch import (
+    synthetic_windows,
+    synthetic_windows_plain,
+)
 
 HIDDEN = 32
 PARAM_NAMES = tuple(WEIGHT_SHAPES)     # w1, b1, w2, b2, w3, b3
@@ -29,16 +45,18 @@ PARAM_NAMES = tuple(WEIGHT_SHAPES)     # w1, b1, w2, b2, w3, b3
 
 class HealthModel(nn.Module):
     """The MLP's six tensors as parameters, in the reference layout:
-    w1 [80, 32], b1 [32], w2 [32, 32], b2 [32], w3 [32, 1], b3 [1]."""
+    w1 [80, 32], b1 [32], w2 [32, 32], b2 [32], w3 [32, 1], b3 [1].
+    They carry no autograd state: training is train_step's explicit
+    backward (K2), never torch.autograd."""
 
     def __init__(self, w1, b1, w2, b2, w3, b3):
         super().__init__()
-        self.w1 = nn.Parameter(w1)
-        self.b1 = nn.Parameter(b1)
-        self.w2 = nn.Parameter(w2)
-        self.b2 = nn.Parameter(b2)
-        self.w3 = nn.Parameter(w3)
-        self.b3 = nn.Parameter(b3)
+        self.w1 = nn.Parameter(w1, requires_grad=False)
+        self.b1 = nn.Parameter(b1, requires_grad=False)
+        self.w2 = nn.Parameter(w2, requires_grad=False)
+        self.b2 = nn.Parameter(b2, requires_grad=False)
+        self.w3 = nn.Parameter(w3, requires_grad=False)
+        self.b3 = nn.Parameter(b3, requires_grad=False)
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
         """The parameters in PARAM_NAMES order."""
@@ -113,51 +131,79 @@ def synthetic_draws(generator: torch.Generator, batch: int,
 def synthetic_from_draws(draws: dict[str, torch.Tensor]
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training-shaped windows [B, W, F] and labels [B] from *draws*
-    (see synthetic_draws), in the REAL normalized feature space the ring
-    produces: the deterministic core of the reference's synthetic_batch.
+    (see synthetic_draws): the deterministic core of the reference's
+    synthetic_batch.  CUDA draws go through the K4 kernel, CPU draws
+    through its plain version (kernels/synthetic_batch.py)."""
+    if draws["noise"].device.type == "cpu":
+        return synthetic_windows_plain(draws)
+    return synthetic_windows(draws)
 
-    Healthy peers: small latencies, no timeouts, near-zero lag, no
-    stall, no flaps.  Degrading peers: latency and lag ramp across the
-    window, timeouts and WAL stalls appear with rising probability,
-    occasional flaps.  The status cadence (lag/stall observed only on
-    every STATUS_EVERY-th successful tick, carried forward in between)
-    and the restart pad (leading all-zero ticks on ~a third of windows)
-    are applied as the deployed ring would show them.
-    """
-    noise = draws["noise"]
-    batch = noise.shape[0]
-    dev = noise.device
-    labels = (draws["label_u"] > 0.5).to(torch.float32)
-    lab = labels[:, None]
-    trend = torch.linspace(0.0, 1.0, WINDOW, device=dev)[None, :]   # [1, W]
 
-    latency = 0.005 + 0.03 * noise[..., 0] \
-        + lab * trend * (0.3 + 0.7 * draws["latency_u"])
-    p_timeout = lab * trend * 0.6
-    timed_out = (noise[..., 1] < p_timeout).to(torch.float32)
-    lag = 0.01 * noise[..., 2] \
-        + lab * trend * (0.4 + 0.6 * draws["lag_u"])
-    stall = (noise[..., 3] < lab * trend * 0.5).to(torch.float32)
-    flaps = torch.clamp(
-        lab * trend * draws["flap_u"] * 0.8 + 0.02 * noise[..., 4], max=1.0)
+def synthetic_batch(generator: torch.Generator, batch: int,
+                    device: str | torch.device
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's synthetic_batch(key, batch), with an explicit
+    generator, on *device* (its own), in place of the key: the draws,
+    then K4 on a CUDA card or its plain version on the CPU."""
+    return synthetic_from_draws(synthetic_draws(generator, batch, device))
 
-    windows = torch.stack(
-        [torch.clamp(latency, 0.0, 1.0), timed_out,
-         torch.clamp(lag, 0.0, 1.0), stall, flaps], dim=-1)
 
-    # status cadence: carry the last observed (lag, stall) forward over
-    # the ticks that had no status observation
-    pos = torch.arange(WINDOW, device=dev)[None, :]
-    has_status = ((pos % STATUS_EVERY) == draws["phase"]) & (timed_out < 0.5)
-    prev = torch.zeros(batch, 2, device=dev)
-    carried = []
-    for t in range(WINDOW):
-        prev = torch.where(has_status[:, t, None], windows[:, t, 2:4], prev)
-        carried.append(prev)
-    windows[..., 2:4] = torch.stack(carried, dim=1)
+def _loss(model: HealthModel, windows: torch.Tensor,
+          labels: torch.Tensor) -> torch.Tensor:
+    """Mean numerically stable binary cross-entropy of the logits."""
+    return loss_plain(windows, labels, *model.tensors())
 
-    # restart pad: leading all-zero ticks, as a freshly (re)started
-    # ring scores them
-    pad = torch.where(draws["pad_u"] < 0.35, draws["pad_len"], 0)
-    keep = pos >= pad                                        # [B, W]
-    return windows * keep[..., None], labels
+
+def _sgd_step(model: HealthModel, windows: torch.Tensor,
+              labels: torch.Tensor, lr: float, all_reduce=None,
+              world: int = 1) -> tuple[HealthModel, torch.Tensor]:
+    """One SGD step on the mean loss over *world* equal shards, this
+    process holding one: K2a + K2b on CUDA, their plain version on the
+    CPU.  With *all_reduce*, the shard's sums (K2b as a pure reduction)
+    are added over the shards before the update."""
+    params = model.tensors()
+    if windows.device.type == "cpu":
+        sums = grad_sums_plain(windows, labels, *params)[None]
+        apply = sgd_apply_plain
+    else:
+        sums = mlp_train_partials(windows, labels, *params)
+        apply = mlp_sgd_apply
+    if all_reduce is not None:
+        sums, _ = apply(sums, 1.0)
+        all_reduce(sums)
+        sums = sums[None]
+    out, new = apply(sums, 1.0 / (windows.shape[0] * world), params, lr)
+    return HealthModel(*new), out[-1]
+
+
+def train_step(model: HealthModel, windows: torch.Tensor,
+               labels: torch.Tensor, lr: float = 1e-2
+               ) -> tuple[HealthModel, torch.Tensor]:
+    """One SGD step on the mean loss: (new model, the loss before the
+    step), as the reference's train_step.  CUDA tensors go through K2a
+    and K2b, CPU tensors through their plain version."""
+    return _sgd_step(model, windows, labels, lr)
+
+
+def make_mesh_train_step(group=None):
+    """The data-parallel training step over the ranks of *group* (the
+    default process group when None): each rank passes its shard of the
+    batch, all shards of one size, and the same parameters.
+
+    Each rank sums its shard's gradients (K2a, then K2b as a pure
+    reduction, on CUDA), one all-reduce adds the 3,682 sums over the
+    ranks, and the update p - lr * sum / global_batch (K2b) leaves every
+    rank with the same bits.  step(model, windows, labels, lr) returns
+    (new model, the global mean loss), as the reference's replicated
+    step does."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size(group)
+
+    def step(model: HealthModel, windows: torch.Tensor,
+             labels: torch.Tensor, lr: float = 1e-2
+             ) -> tuple[HealthModel, torch.Tensor]:
+        return _sgd_step(model, windows, labels, lr,
+                         lambda t: dist.all_reduce(t, group=group), world)
+
+    return step

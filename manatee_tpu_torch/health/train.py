@@ -1,27 +1,46 @@
-"""Recorded-trace evaluation of the failure predictor, ported.
+"""Train the failure predictor, export its weights, and evaluate them —
+ported from manatee_tpu/health/train.py.
 
-    evaluate_recorded(paths, device=...)
+    python -m manatee_tpu_torch.health.train [-o weights.npz] [--steps N]
+        [--mix-recorded JSONL...] [--device cuda|cpu]
 
-replays recorded telemetry dumps (telemetryDump JSONL, one line per
-probe tick) through the ring and scorer the sitters run, and scores the
-model against the reference's own reactive labels.  It returns the same
-dict as manatee_tpu/health/train.py::evaluate_recorded; the difference
-is that each trace's scoreable windows go to the device in one batch,
-one ``predict`` call (one K1 launch on CUDA) per trace.
+``train`` runs every step on the device: the draws (the device's own
+generator), the synthetic batch (K4), the gather of the recorded rows,
+the fused loss, gradient and SGD step (K2a + K2b), and the held-out
+accuracy (K4 + K1).  ``export`` writes the .npz the scorers load.
+``evaluate`` feeds simulated probe ticks through the deployed ring and
+scorer, one ``predict`` call (one K1 launch on CUDA) per scored tick, as
+a sitter scores.  ``evaluate_recorded`` replays recorded telemetry
+dumps, one ``predict`` call per trace.  Each returns the reference's
+dict.
 
-Training and export are not ported yet.
+Unlike the reference, ``train`` runs on one device: its mesh path for
+several devices (train.py:159-180) is not ported;
+``make_mesh_train_step`` is, and ``graft_entry.dryrun_multichip`` runs it.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import numpy as np
 import torch
 
+from manatee_tpu_torch.device import resolve
+from manatee_tpu_torch.health.convert import save_npz
+from manatee_tpu_torch.health.predictor import (
+    HealthModel,
+    init_params,
+    predict,
+    synthetic_batch,
+    train_step,
+)
 from manatee_tpu_torch.health.telemetry import (
+    DEFAULT_WEIGHTS,
     FAILED_PROBE_LATENCY_MS,
     N_FEATURES,
+    STATUS_EVERY,
     WARN_THRESHOLD,
     WINDOW,
     TelemetryRing,
@@ -82,6 +101,209 @@ def ready_windows(ticks) -> tuple[np.ndarray, list[int]]:
     if not windows:
         return np.zeros((0, WINDOW, N_FEATURES), np.float32), scored_at
     return np.stack(windows), scored_at
+
+
+def recorded_windows(paths, *, horizon: int = 8,
+                     include_positives: bool = False
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Labeled training windows from recorded telemetry dumps, replayed
+    through the ring with the episode accounting evaluate_recorded uses:
+
+    * label 0: windows on healthy stretches — the chaos-storm negatives
+      (restore churn, flapping neighbors) that synthetic data cannot
+      model;
+    * label 1 (only with *include_positives*): windows within *horizon*
+      ticks before a hard failure and not dominated by a previous
+      episode.  Off by default: storm failures are abrupt SIGKILLs whose
+      pre-failure windows look healthy, so these labels are noise.
+
+    Windows inside an episode or its recovery shadow carry no label
+    either way and are dropped."""
+    shadow = max(horizon, WINDOW)
+    wins: list[np.ndarray] = []
+    labels: list[float] = []
+    for path in paths:
+        ticks = _load_ticks(path)
+        if not ticks:
+            continue
+        episodes = _episode_spans(ticks)
+        hard = [start for start, _end in episodes]
+
+        ring = TelemetryRing()
+        for i, t in enumerate(ticks):
+            _feed(ring, t)
+            if not ring.ready():
+                continue
+            in_zone = any(start - horizon <= i <= end + shadow
+                          for start, end in episodes)
+            if not in_zone:
+                wins.append(ring.window_array().copy())
+                labels.append(0.0)
+            elif include_positives and \
+                    any(0 < h - i <= horizon for h in hard) and \
+                    not any(start <= i <= end + shadow
+                            for start, end in episodes):
+                wins.append(ring.window_array().copy())
+                labels.append(1.0)
+    if not wins:
+        return (np.zeros((0, 0, 0), np.float32),
+                np.zeros((0,), np.float32))
+    return (np.stack(wins).astype(np.float32),
+            np.asarray(labels, np.float32))
+
+
+def training_batches(steps: int = 300, batch: int = 256, seed: int = 0,
+                     recorded: tuple | None = None,
+                     recorded_frac: float = 0.03,
+                     device: str | torch.device | None = None):
+    """The (windows, labels) of each of train's *steps* steps, on
+    *device* (default CUDA): synthetic rows drawn by the device's own
+    generator from seed + 1, then up to *recorded_frac* of the batch
+    from *recorded* (windows, labels of recorded_windows), rows drawn
+    with replacement by the reference's own numpy generator (seed + 7),
+    so the same rows; the rest stays synthetic so the degradation
+    signature is never diluted."""
+    dev = resolve(device)
+    n_rec = 0
+    if recorded is not None and len(recorded[1]):
+        # floor of 1: a small batch must not silently drop the mix the
+        # caller explicitly provided
+        n_rec = min(max(1, int(batch * recorded_frac)), batch - 1)
+    n_syn = batch - n_rec
+    if n_rec:
+        rec_w = torch.from_numpy(np.ascontiguousarray(recorded[0])).to(dev)
+        rec_y = torch.from_numpy(np.ascontiguousarray(recorded[1])).to(dev)
+        # the reference draws each step's rows with one integers() call;
+        # drawn the same way here, all up front, and sent once
+        rng = np.random.default_rng(seed + 7)
+        rows = torch.from_numpy(np.stack(
+            [rng.integers(0, len(recorded[1]), size=n_rec)
+             for _ in range(steps)])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for i in range(steps):
+        w, y = synthetic_batch(gen, n_syn, dev)
+        if n_rec:
+            w = torch.cat([w, rec_w[rows[i]]])
+            y = torch.cat([y, rec_y[rows[i]]])
+        yield w, y
+
+
+def train(steps: int = 300, batch: int = 256, lr: float = 5e-2,
+          seed: int = 0, recorded: tuple | None = None,
+          recorded_frac: float = 0.03,
+          device: str | torch.device | None = None
+          ) -> tuple[HealthModel, float, float]:
+    """Train from init_params(seed) for *steps* SGD steps on the batches
+    of training_batches, on *device* (default CUDA); returns (model, last
+    loss, held-out accuracy on 2,048 fresh synthetic windows).  Every
+    draw comes from the device's own generator, so a card and the CPU
+    train on other batches from one seed."""
+    if steps < 1:
+        raise ValueError("steps must be >= 1")
+    dev = resolve(device)
+    model = init_params(torch.Generator(device=dev).manual_seed(seed))
+    for w, y in training_batches(steps, batch, seed, recorded,
+                                 recorded_frac, dev):
+        model, loss = train_step(model, w, y, lr)
+
+    w, y = synthetic_batch(
+        torch.Generator(device=dev).manual_seed(seed + 999), 2048, dev)
+    acc = float(((predict(model, w) > 0.5) == (y > 0.5)).float().mean())
+    return model, float(loss), acc
+
+
+def export(model: HealthModel, path) -> None:
+    """Write the trained weights where a TorchScorer or NumpyScorer loads
+    them."""
+    save_npz(model, path)
+
+
+def evaluate(weights_path=None, *, n_traces: int = 200, ramp: int = 12,
+             healthy_ticks: int = 40, seed: int = 0,
+             status_every: int | None = None,
+             device: str | torch.device | None = None) -> dict:
+    """Evaluation through the DEPLOYED path: simulated probe ticks fed
+    through the same TelemetryRing and scorer a sitter runs, one window
+    scored per tick, measuring
+
+    * detection rate: fraction of degradation traces whose score crosses
+      WARN_THRESHOLD before the hard failure at ramp end;
+    * lead ticks: probe ticks of warning before the hard failure;
+    * false positives: healthy-trace ticks scored above threshold.
+
+    Degradation traces ramp latency/timeouts/lag/stalls over *ramp*
+    ticks, the signature synthetic_batch trains on; the hard failure is
+    at the end of the ramp.  *status_every* mirrors the manager's cadence:
+    lag/WAL reach the ring only on every Nth successful probe."""
+    if status_every is None:
+        status_every = STATUS_EVERY
+    rng = np.random.default_rng(seed)
+    scorer = TorchScorer(weights_path, device=device)
+    if not scorer.available:
+        raise RuntimeError("no usable weights at %r" % (weights_path,))
+
+    leads: list[int] = []
+    detected = 0
+    fp_ticks = 0
+    healthy_scored = 0
+
+    for _ in range(n_traces):
+        ring = TelemetryRing()
+        lsn = 0
+        tick_no = 0
+
+        def add(ring, *, latency_ms, timed_out, lag_s, wal_lsn,
+                in_recovery=True):
+            nonlocal tick_no
+            tick_no += 1
+            # the manager attaches the status op only to every Nth
+            # SUCCESSFUL probe — a failed probe never observes lag/wal
+            if not timed_out and tick_no % status_every == 0:
+                ring.add(latency_ms=latency_ms, timed_out=timed_out,
+                         lag_s=lag_s, wal_lsn=wal_lsn,
+                         in_recovery=in_recovery)
+            else:   # no status this tick: ring carries lag/wal forward
+                ring.add(latency_ms=latency_ms, timed_out=timed_out,
+                         lag_s=None, wal_lsn=None,
+                         in_recovery=in_recovery)
+
+        for _ in range(healthy_ticks):
+            lsn += int(1000 * (1 + rng.random()))
+            add(ring, latency_ms=5 + 25 * rng.random(),
+                timed_out=False, lag_s=0.05 * rng.random(), wal_lsn=lsn)
+            if ring.ready():
+                s = scorer.score(ring.window_array())
+                healthy_scored += 1
+                if s is not None and s > WARN_THRESHOLD:
+                    fp_ticks += 1
+        # degradation ending in the hard failure at tick `ramp`
+        warn_at = None
+        for j in range(ramp):
+            f = (j + 1) / ramp
+            add(ring,
+                latency_ms=30 + 970 * f * rng.random(),
+                timed_out=rng.random() < 0.6 * f,
+                lag_s=10.0 * f * rng.random(),
+                wal_lsn=lsn)              # WAL stops advancing
+            if not ring.ready():
+                continue   # the deployed path never scores a cold ring
+            s = scorer.score(ring.window_array())
+            if warn_at is None and s is not None and s > WARN_THRESHOLD:
+                warn_at = j
+        # lead counts ticks strictly BEFORE the hard failure (which
+        # fires on the final ramp tick, index ramp-1)
+        if warn_at is not None and warn_at < ramp - 1:
+            detected += 1
+            leads.append(ramp - 1 - warn_at)
+
+    return {
+        "n_traces": n_traces,
+        "detection_rate": detected / n_traces,
+        "median_lead_ticks": float(np.median(leads)) if leads else 0.0,
+        "min_lead_ticks": min(leads) if leads else 0,
+        "false_positive_rate": (fp_ticks / healthy_scored
+                                if healthy_scored else 0.0),
+    }
 
 
 def evaluate_recorded(paths, weights_path=None, *, horizon: int = 8,
@@ -176,3 +398,62 @@ def evaluate_recorded(paths, weights_path=None, *, horizon: int = 8,
         "healthy_ticks": healthy_scored,
         "unscoreable_failures": unscoreable,
     }
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("-o", "--out", default=None,
+                   help="output .npz (default: the port's packaged "
+                        "weights path)")
+    p.add_argument("--steps", type=int, default=300)
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--recorded", nargs="+", metavar="JSONL",
+                   help="skip training; evaluate the packaged weights "
+                        "(or -o) on recorded telemetry dumps and print "
+                        "one JSON result line")
+    p.add_argument("--horizon", type=int, default=8,
+                   help="ticks of lead counted as a useful warning "
+                        "(with --recorded)")
+    p.add_argument("--mix-recorded", nargs="+", metavar="JSONL",
+                   dest="mix_recorded",
+                   help="mix healthy-stretch windows extracted from "
+                        "recorded telemetry dumps into training")
+    p.add_argument("--recorded-frac", type=float, default=0.03,
+                   dest="recorded_frac",
+                   help="fraction of each batch drawn from the recorded "
+                        "mix (default 0.03)")
+    p.add_argument("--device", default=None,
+                   help="torch device to run on (default cuda; cpu on "
+                        "request only)")
+    args = p.parse_args(argv)
+
+    if args.recorded:
+        print(json.dumps(evaluate_recorded(
+            args.recorded, args.out, horizon=args.horizon,
+            device=args.device)))
+        return
+
+    out = args.out or str(DEFAULT_WEIGHTS)
+    recorded = None
+    if args.mix_recorded:
+        recorded = recorded_windows(args.mix_recorded, horizon=args.horizon)
+        print("recorded mix: %d windows (%d positive) from %d dumps"
+              % (len(recorded[1]), int(recorded[1].sum()),
+                 len(args.mix_recorded)))
+
+    model, loss, acc = train(steps=args.steps, batch=args.batch,
+                             recorded=recorded,
+                             recorded_frac=args.recorded_frac,
+                             device=args.device)
+    export(model, out)
+    print("trained %d steps: loss %.4f, held-out acc %.3f -> %s"
+          % (args.steps, loss, acc, out))
+    ev = evaluate(out, device=args.device)
+    print("deployed-path eval: detection %.1f%%, median lead %g ticks "
+          "(min %d), healthy-tick FPR %.4f"
+          % (100 * ev["detection_rate"], ev["median_lead_ticks"],
+             ev["min_lead_ticks"], ev["false_positive_rate"]))
+
+
+if __name__ == "__main__":
+    main()

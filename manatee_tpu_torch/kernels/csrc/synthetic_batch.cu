@@ -1,0 +1,147 @@
+// K4: the synthetic training batch of the failure predictor.
+//
+// Replaces the device part of manatee_tpu/health/predictor.py::
+// synthetic_batch (:110-185), which XLA compiled for the TPU: from the
+// random draws (drawn outside, as jax.random is outside the reference's
+// device function) it makes each window's label, the latency and lag
+// ramps, the timeout/stall/flap coins, the status-cadence carry of
+// (lag, stall) across the 16 ticks (the reference's lax.scan) and the
+// restart pad.
+//
+//   label_u [B], noise [B,16,5], latency_u/lag_u/flap_u/pad_u [B,1] fp32,
+//   phase/pad_len [B,1] int64, trend [16] fp32
+//   -> windows [B,16,5] fp32, labels [B] fp32
+//
+// Bound on an H100 SXM: each row reads 360 bytes (noise 320, five
+// floats, two int64s) and writes 324; ~35 operations per tick, ~560 a
+// row, under one a byte.  So it is bound by bytes: the design keeps
+// every device-memory access coalesced.
+//
+// It must equal the plain version (kernels/synthetic_batch.py) bit for
+// bit: a comparison such as noise < lab*trend*0.6 that moves by one ulp
+// changes a window by 1.0.  So every product and sum is written with
+// __fmul_rn/__fadd_rn, one rounding per torch operator and in torch's
+// order (nvcc never contracts these into an FMA); the constants are the
+// floats torch casts its Python scalars to; and the ramp `trend` is
+// torch.linspace's own output, passed in, not recomputed.
+//
+// Design: one thread per window, 64 windows per block.  The block stages
+// its tile of noise in shared memory with coalesced loads (odd pitch, so
+// a warp's 32 rows fall in 32 banks), each thread walks its 16 ticks
+// carrying (lag, stall) in registers and writes the finished window back
+// over its noise, and the block stores the tile coalesced.
+//
+// Plain C entry point, loaded with ctypes
+// (manatee_tpu_torch/kernels/synthetic_batch.py).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWindow = 16;
+constexpr int kFeatures = 5;
+constexpr int kRowFloats = kWindow * kFeatures;
+constexpr int kRows = 64;                  // windows, and threads, per block
+constexpr int kPitch = kRowFloats + 1;     // odd: conflict-free row access
+constexpr int kStatusEvery = 3;
+
+__device__ __forceinline__ float clamp01(float v) {
+  return fminf(fmaxf(v, 0.f), 1.f);
+}
+
+__global__ void __launch_bounds__(kRows)
+synthetic_batch_kernel(const float* __restrict__ label_u,
+                       const float* __restrict__ noise,
+                       const float* __restrict__ latency_u,
+                       const float* __restrict__ lag_u,
+                       const float* __restrict__ flap_u,
+                       const long long* __restrict__ phase,
+                       const float* __restrict__ pad_u,
+                       const long long* __restrict__ pad_len,
+                       const float* __restrict__ trend,
+                       float* __restrict__ windows,
+                       float* __restrict__ labels, int batch) {
+  __shared__ float tile[kRows * kPitch];
+  __shared__ float strend[kWindow];
+
+  const int t = threadIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int rows = static_cast<int>(
+      min(static_cast<long long>(kRows), batch - row0));
+
+  if (t < kWindow) strend[t] = trend[t];
+  const float* src = noise + row0 * kRowFloats;
+  for (int i = t; i < rows * kRowFloats; i += kRows)
+    tile[(i / kRowFloats) * kPitch + i % kRowFloats] = src[i];
+  __syncthreads();
+
+  if (t < rows) {
+    const long long row = row0 + t;
+    const float lab = label_u[row] > 0.5f ? 1.f : 0.f;
+    // the per-window factors, each one torch operator on [B, 1]
+    const float lat_f = __fadd_rn(__fmul_rn(0.7f, latency_u[row]), 0.3f);
+    const float lag_f = __fadd_rn(__fmul_rn(0.6f, lag_u[row]), 0.4f);
+    const float flap = flap_u[row];
+    const long long ph = phase[row];
+    const long long pad = pad_u[row] < 0.35f ? pad_len[row] : 0;
+
+    float* w = tile + t * kPitch;
+    float prev_lag = 0.f, prev_stall = 0.f;
+    for (int k = 0; k < kWindow; ++k) {
+      float* x = w + k * kFeatures;
+      const float lt = __fmul_rn(lab, strend[k]);          // lab * trend
+      const float latency = __fadd_rn(
+          __fadd_rn(__fmul_rn(0.03f, x[0]), 0.005f), __fmul_rn(lt, lat_f));
+      const float timed_out = x[1] < __fmul_rn(lt, 0.6f) ? 1.f : 0.f;
+      const float lag = clamp01(__fadd_rn(__fmul_rn(0.01f, x[2]),
+                                          __fmul_rn(lt, lag_f)));
+      const float stall = x[3] < __fmul_rn(lt, 0.5f) ? 1.f : 0.f;
+      const float flaps = fminf(
+          __fadd_rn(__fmul_rn(__fmul_rn(lt, flap), 0.8f),
+                    __fmul_rn(0.02f, x[4])), 1.f);
+      // status cadence: (lag, stall) observed on this tick or carried
+      if (k % kStatusEvery == ph && timed_out < 0.5f) {
+        prev_lag = lag;
+        prev_stall = stall;
+      }
+      const bool keep = k >= pad;                          // restart pad
+      x[0] = keep ? clamp01(latency) : 0.f;
+      x[1] = keep ? timed_out : 0.f;
+      x[2] = keep ? prev_lag : 0.f;
+      x[3] = keep ? prev_stall : 0.f;
+      x[4] = keep ? flaps : 0.f;
+    }
+    labels[row] = lab;
+  }
+  __syncthreads();
+
+  float* dst = windows + row0 * kRowFloats;
+  for (int i = t; i < rows * kRowFloats; i += kRows)
+    dst[i] = tile[(i / kRowFloats) * kPitch + i % kRowFloats];
+}
+
+}  // namespace
+
+// Launches K4 on `stream` (a cudaStream_t) of `device` over `batch` >= 1
+// windows; every pointer is a contiguous device buffer of the shape and
+// type listed above.  Returns the cudaError_t of the launch; it does not
+// synchronise.
+extern "C" int synthetic_batch_launch(
+    const float* label_u, const float* noise, const float* latency_u,
+    const float* lag_u, const float* flap_u, const long long* phase,
+    const float* pad_u, const long long* pad_len, const float* trend,
+    float* windows, float* labels, int batch, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks =
+      static_cast<unsigned>((static_cast<long long>(batch) + kRows - 1) / kRows);
+  synthetic_batch_kernel<<<blocks, kRows, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      label_u, noise, latency_u, lag_u, flap_u, phase, pad_u, pad_len, trend,
+      windows, labels, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* synthetic_batch_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

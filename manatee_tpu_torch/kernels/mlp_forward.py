@@ -52,14 +52,35 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if tuple(t.shape) != shape:
-        raise ValueError("%s must have shape %s, not %s"
-                         % (name, shape, tuple(t.shape)))
-    if t.dtype != torch.float32:
-        raise TypeError("%s must be float32, not %s" % (name, t.dtype))
-    if not t.is_contiguous():
-        raise ValueError("%s must be contiguous" % name)
+def check_inputs(kernel: str, specs) -> torch.device:
+    """Raise unless every (name, tensor, shape, dtype) of *specs* is a
+    contiguous tensor of that shape and dtype, all on one CUDA card:
+    what a kernel of the port takes.  Returns that card."""
+    for name, t, shape, dtype in specs:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError("%s must have shape %s, not %s"
+                             % (name, tuple(shape), tuple(t.shape)))
+        if t.dtype != dtype:
+            raise TypeError("%s must be %s, not %s" % (
+                name, str(dtype).removeprefix("torch."), t.dtype))
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    first, device = specs[0][0], specs[0][1].device
+    if device.type != "cuda":
+        raise ValueError("%s launches a CUDA kernel; %s is on %s"
+                         % (kernel, first, device))
+    for name, t, _shape, _dtype in specs[1:]:
+        if t.device != device:
+            raise ValueError("%s is on %s, not %s" % (name, t.device, device))
+    return device
+
+
+def weight_specs(weights) -> list:
+    """check_inputs specs of the six reference-layout fp32 tensors."""
+    if len(weights) != len(WEIGHT_SHAPES):
+        raise ValueError("expected the six tensors %s" % list(WEIGHT_SHAPES))
+    return [(name, t, shape, torch.float32)
+            for (name, shape), t in zip(WEIGHT_SHAPES.items(), weights)]
 
 
 def mlp_forward(windows: torch.Tensor, w1, b1, w2, b2, w3, b3
@@ -72,17 +93,10 @@ def mlp_forward(windows: torch.Tensor, w1, b1, w2, b2, w3, b3
     if not 0 <= batch <= _MAX_ROWS:
         raise ValueError("windows must have shape [B, 16, 5] with "
                          "B < 2**31, not %s" % (tuple(windows.shape),))
-    _check("windows", windows, (batch, *WINDOW_SHAPE))
     weights = (w1, b1, w2, b2, w3, b3)
-    for (name, shape), t in zip(WEIGHT_SHAPES.items(), weights):
-        _check(name, t, shape)
-    device = windows.device
-    if device.type != "cuda":
-        raise ValueError("mlp_forward launches a CUDA kernel; windows are "
-                         "on %s" % device)
-    for name, t in zip(WEIGHT_SHAPES, weights):
-        if t.device != device:
-            raise ValueError("%s is on %s, not %s" % (name, t.device, device))
+    device = check_inputs("mlp_forward", [
+        ("windows", windows, (batch, *WINDOW_SHAPE), torch.float32),
+        *weight_specs(weights)])
     out = torch.empty(batch, dtype=torch.float32, device=device)
     if batch == 0:
         return out

@@ -22,6 +22,9 @@ BUILD_DIR = Path(__file__).parent / "build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# every kernel source of the port, csrc/<name>.cu
+KERNELS = ("mlp_forward", "mlp_train", "synthetic_batch")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

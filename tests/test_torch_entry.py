@@ -139,16 +139,26 @@ def test_port_runs_without_jax_in_a_fresh_process():
     code = """
 import sys
 from manatee_tpu_torch.graft_entry import entry
-from manatee_tpu_torch.health.train import evaluate_recorded
+from manatee_tpu_torch.health.predictor import synthetic_batch, train_step
+from manatee_tpu_torch.health.train import (
+    evaluate_recorded, recorded_windows, train)
+import torch
 fn, args = entry(device="cpu")
 assert fn(*args).shape == (64,)
 ev = evaluate_recorded(%r, device="cpu")
 assert ev["scored_ticks"] > 0, ev
+w, y = synthetic_batch(torch.Generator().manual_seed(1), 16, "cpu")
+_model, loss = train_step(args[0], w, y)
+assert float(loss) > 0
+rec = recorded_windows(%r[:1])
+assert len(rec[1]) > 0
+_model, loss, acc = train(steps=2, recorded=rec, device="cpu")
+assert loss > 0 and 0 <= acc <= 1
 bad = [m for m in sys.modules if m.startswith("jax") or m == "manatee_tpu"
        or m.startswith("manatee_tpu.")]
 assert not bad, bad
 print("clean")
-""" % (HANG,)
+""" % (HANG, HANG)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                          env=env, capture_output=True, text=True,
