@@ -34,11 +34,27 @@ phase catches its own failure:
      comparison); then dryrun_multichip(1) on NCCL;
   i. whole-slice parity: 100 train steps on the card from the packaged
      weights against the same steps of the plain version on the CPU;
-  j. timing: the replay's and the training loop's device busy and idle
-     share (torch.profiler), then each kernel, its plain version and a
-     library yardstick where one exists, timed with CUDA events;
-  k. one JSON line describing every kernel;
-  l. last line: {"ok": true, "device": {...}}.
+  j. K3: one mesh step of dryrun_multichip(1)'s rank on NCCL at B = 16,
+     timed (CUDA events), beside K2 alone and the all-reduce alone;
+  k. the model checker's kernels K5, K6 and K7 against their plain
+     versions, equal element for element, on the states of all six
+     configs under each knob set at B = 1, 7, 256 and 1024;
+  l. the model checker's main path, launch counts set to 0 just before
+     it: the probe (mc_array.main: promote, chunk 1024, cold depth 2,
+     depth 5 = 2,763 states, depth 7 = 21,038 states) on the card, every
+     K5/K6/K7 call it made held against the plain version; the depth-7
+     digests, traces, verdicts and counters on the card equal to the
+     plain versions' on the CPU; differential against the oracle for all
+     six configs at depth 5 and the four mutation cases; the users'
+     sweep (`make modelcheck-jax`: every config at depth 8) through the
+     CLI with --engine torch;
+  m. timing: the replay's, the training loop's and the checker's depth-7
+     run's device busy and idle share (torch.profiler), then each kernel,
+     its plain version and a library yardstick where one exists, timed
+     with CUDA events (K5-K7 at chunk 1024 and at 65,536 rows of real
+     frontier states, with the sort's time apart);
+  n. one JSON line describing every kernel;
+  o. last line: {"ok": true, "device": {...}}.
 
 It exits non-zero and prints no result when CUDA is unavailable or the
 package is not beside this script.
@@ -46,6 +62,7 @@ package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -143,7 +160,9 @@ def bound(moved: int, ops: int, bw: float, flops: float) -> dict:
 
 
 KERNEL_NAMES = {"K1": "mlp_forward", "K2a": "mlp_train_partials",
-                "K2b": "mlp_sgd_apply", "K4": "synthetic_batch"}
+                "K2b": "mlp_sgd_apply", "K4": "synthetic_batch",
+                "K5": "mc_step", "K6": "mc_liveness", "K7_hash": "mc_hash",
+                "K7_keep": "mc_keep"}
 
 
 def profile_run(run) -> dict:
@@ -428,6 +447,401 @@ def slice_parity(dev) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# the model checker (slice 3): K5, K6, K7
+
+MC_CONFIG = "promote"            # the probe's config (P = 4)
+MC_CHUNK = 1024                  # the probe's chunk
+MC_EDGE = (1, 7, 256, 1024)      # edge batches of K5-K7
+MC_BULK = 65536                  # rows of real frontier states, for timing
+MC_SWEEP_DEPTH = 8               # `make modelcheck-jax`'s depth
+# promote's states at depth 5 and 7 (MULTICHIP_modelcheck.json)
+PROMOTE_STATES = {5: 2763, 7: 21038}
+# the mutation cases of tests/test_mc_array.py:114-121
+MC_MUTATIONS = (("behind", 4, {"disable_xlog_guard": True}),
+                ("freeze", 4, {"ignore_freeze": True}),
+                ("promote", 3, {"deposed_keeps_primary": True}),
+                ("deaths3", 3, {"skip_gen_bump": True}))
+MC_KNOB_SETS = ({}, {"disable_xlog_guard": True}, {"ignore_freeze": True},
+                {"deposed_keeps_primary": True}, {"skip_gen_bump": True})
+
+
+class McRecorder:
+    """Keeps every call the explorer makes to K5, K6 and K7 while it is
+    on: the inputs and the kernels' outputs, on the card.  The calls are
+    the main path's own; nothing is launched again to record them."""
+
+    def __init__(self):
+        self.calls = {"K5": [], "K6": [], "K7": []}
+
+    @contextlib.contextmanager
+    def on(self):
+        from manatee_tpu_torch.kernels import mc_dedup, mc_step
+
+        orig = (mc_step.step, mc_step.liveness, mc_dedup.dedup)
+
+        def step(vs, knobs, P):
+            out = orig[0](vs, knobs, P)
+            self.calls["K5"].append(((vs, knobs, P), out))
+            return out
+
+        def liveness(vs, knobs, P):
+            out = orig[1](vs, knobs, P)
+            self.calls["K6"].append(((vs, knobs, P), out))
+            return out
+
+        def dedup(flat, valid):
+            out = orig[2](flat, valid)
+            self.calls["K7"].append(((flat, valid), out))
+            return out
+
+        mc_step.step, mc_step.liveness, mc_dedup.dedup = step, liveness, dedup
+        try:
+            yield self
+        finally:
+            mc_step.step, mc_step.liveness, mc_dedup.dedup = orig
+
+
+def mc_check_call(key: str, args, out) -> None:
+    """One K5/K6/K7 result against its plain version on the same inputs,
+    equal element for element."""
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+
+    if key == "K5":
+        want = mc_step.step_plain(*args)
+        ok = all(torch.equal(a, b) for a, b in zip(out, want))
+    elif key == "K6":
+        ok = torch.equal(out, mc_step.liveness_plain(*args))
+    else:
+        want = mc_dedup.dedup_plain(*args)
+        ok = torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    require(ok, "%s differs from its plain version at B=%d"
+            % (key, args[0].shape[0]))
+
+
+def mc_levels(name: str, kw: dict, depth: int = 4, cap: int = 2048):
+    """All states of a config's BFS to *depth* under a knob set, through
+    the plain versions on the CPU: (rows (N, SIZE) int32, knobs, P)."""
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    cfg = CONFIGS[name]
+    m = ma.Mutations(**kw)
+    P = len(cfg.peers)
+    knobs = torch.from_numpy(ma.make_knobs(cfg, m))
+    level = torch.from_numpy(ma.encode_world(ma._boot(cfg, m), cfg))[None]
+    seen = {level[0].numpy().tobytes()}
+    rows = [level]
+    for _ in range(depth):
+        ch, _vi, en = mc_step.step_plain(level, knobs, P)
+        flat = ch.view(-1, ch.shape[-1])
+        keep, order = mc_dedup.dedup_plain(flat, en.view(-1))
+        new = [r for r in flat[torch.sort(order[keep]).values]
+               if r.numpy().tobytes() not in seen]
+        if not new:
+            break
+        seen.update(r.numpy().tobytes() for r in new)
+        level = torch.stack(new)[:cap]
+        rows.append(level)
+    return torch.cat(rows), knobs, P
+
+
+def tile_rows(rows: torch.Tensor, batch: int) -> torch.Tensor:
+    reps = -(-batch // rows.shape[0])
+    return rows.repeat(reps, 1)[:batch].contiguous()
+
+
+def check_mc_edges(dev) -> int:
+    """K5, K6 and K7 against their plain versions on the states of all
+    six configs under each knob set, at the edge batches."""
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    n = 0
+    for name in sorted(CONFIGS):
+        for kw in MC_KNOB_SETS:
+            rows, knobs, P = mc_levels(name, kw)
+            knobs = knobs.to(dev)
+            for batch in MC_EDGE:
+                vs = tile_rows(rows, batch).to(dev)
+                out = mc_step.mc_step(vs, knobs, P)
+                mc_check_call("K5", (vs, knobs, P), out)
+                mc_check_call("K6", (vs, knobs, P),
+                              mc_step.mc_liveness(vs, knobs, P))
+                flat = out[0].view(-1, out[0].shape[-1])
+                valid = out[2].reshape(-1)
+                mc_check_call("K7", (flat, valid),
+                              mc_dedup.mc_dedup(flat, valid))
+                n += 1
+    torch.cuda.synchronize()
+    print("K5/K6/K7 vs plain: equal on %d batches (6 configs x %d knob sets "
+          "x B=%s)" % (n, len(MC_KNOB_SETS), MC_EDGE))
+    return n
+
+
+def mc_reset_counts() -> None:
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+
+    mc_step.mc_step.launches = 0
+    mc_step.mc_liveness.launches = 0
+    mc_dedup.mc_sort_keys.launches = 0
+    mc_dedup.mc_keep.launches = 0
+
+
+def mc_read_counts() -> dict:
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+
+    return {"K5": mc_step.mc_step.launches,
+            "K6": mc_step.mc_liveness.launches,
+            "K7_hash": mc_dedup.mc_sort_keys.launches,
+            "K7_keep": mc_dedup.mc_keep.launches}
+
+
+def collect_run(dev, depth: int):
+    """explore_torch of promote at *depth*, chunk 1024, on *dev*, with
+    every state's digest, trace and verdict."""
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    got = {}
+    t0 = time.perf_counter()
+    res = ma.explore_torch(
+        CONFIGS[MC_CONFIG], depth=depth, chunk=MC_CHUNK, device=dev,
+        collect=lambda d, seq, cats: got.setdefault(d, (seq, cats)))
+    return got, res, time.perf_counter() - t0
+
+
+def model_checker_path(dev) -> dict:
+    """The model checker on the card: the probe (counts from 0), every
+    call it made held against the plain versions, the depth-7 run against
+    the CPU, differential over all configs and the mutation cases, and
+    the users' sweep through the CLI."""
+    import io
+
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state import modelcheck as mc
+
+    # the main path: the probe at its configuration (cold depth 2, warm
+    # depth 5, deeper depth 7), counts from 0
+    rec = McRecorder()
+    buf = io.StringIO()
+    mc_reset_counts()
+    t0 = time.perf_counter()
+    with rec.on(), contextlib.redirect_stdout(buf):
+        rc = ma.main(["--config", MC_CONFIG, "--depth", "5", "--deeper", "2",
+                      "--chunk", str(MC_CHUNK)])
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    counts = mc_read_counts()
+    probe = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print("mc probe: %s" % json.dumps(probe))
+    require(rc == 0 and probe["ok"] and probe["complete"]
+            and probe["states"] == PROMOTE_STATES[5]
+            and probe["deeper"]["ok"] and probe["deeper"]["complete"]
+            and probe["deeper"]["states"] == PROMOTE_STATES[7],
+            "promote states %s, want %s" % (probe, PROMOTE_STATES))
+    require(all(n > 0 for n in counts.values()),
+            "model checker launches %s" % counts)
+    require(counts["K5"] == len(rec.calls["K5"])
+            and counts["K6"] == len(rec.calls["K6"])
+            and counts["K7_hash"] == len(rec.calls["K7"])
+            and counts["K7_keep"] == len(rec.calls["K7"]),
+            "launches %s vs calls %s" % (counts, {
+                k: len(v) for k, v in rec.calls.items()}))
+
+    # every call of the main path against the plain version
+    t0 = time.perf_counter()
+    for key, calls in rec.calls.items():
+        for args, out in calls:
+            mc_check_call(key, args, out)
+    torch.cuda.synchronize()
+    print("mc main path vs plain: equal on every call (K5 %d, K6 %d, K7 "
+          "hash %d + keep %d) in %.1f s" % (
+              counts["K5"], counts["K6"], counts["K7_hash"],
+              counts["K7_keep"], time.perf_counter() - t0))
+    # the real frontier states (every liveness input), for timing
+    frontier = torch.cat([a[0] for a, _out in rec.calls["K6"]])
+    calls = {k: len(v) for k, v in rec.calls.items()}
+    rec.calls = None
+
+    # depth 7 on the card vs the plain versions on the CPU
+    card7, res7, card7_s = collect_run(dev, 7)
+    cpu7, cres7, cpu7_s = collect_run("cpu", 7)
+    c_card = (res7.states, res7.nodes, res7.transitions, res7.depth_reached,
+              res7.complete, res7.ok)
+    c_cpu = (cres7.states, cres7.nodes, cres7.transitions,
+             cres7.depth_reached, cres7.complete, cres7.ok)
+    require(card7 == cpu7 and c_card == c_cpu,
+            "depth 7 card %s vs cpu %s (digest sets equal: %s)"
+            % (c_card, c_cpu, card7.keys() == cpu7.keys()))
+    print("mc depth 7: card == cpu on %d digests, traces and verdicts, "
+          "counters %s; card %.2f s, cpu %.2f s" % (
+              len(card7), c_card, card7_s, cpu7_s))
+
+    # differential on the card: every config at depth 5, the mutations
+    diff = {}
+    for name in sorted(mc.CONFIGS):
+        t0 = time.perf_counter()
+        pres, tres = ma.differential(mc.CONFIGS[name], depth=5, device=dev)
+        require(pres.complete and tres.complete and pres.ok and tres.ok,
+                "differential %s at depth 5" % name)
+        diff[name] = {"states": tres.states, "nodes": tres.nodes,
+                      "transitions": tres.transitions,
+                      "seconds": time.perf_counter() - t0}
+    for name, depth, kw in MC_MUTATIONS:
+        t0 = time.perf_counter()
+        pres, tres = ma.differential(mc.CONFIGS[name], depth=depth,
+                                     mutations=ma.Mutations(**kw),
+                                     device=dev)
+        require(bool(pres.violations) and bool(tres.violations),
+                "mutation %s not caught" % kw)
+        diff["%s+%s" % (name, next(iter(kw)))] = {
+            "states": tres.states, "violations": len(tres.violations),
+            "seconds": time.perf_counter() - t0}
+    print("mc differential on the card: %s" % json.dumps(diff))
+
+    # the users' sweep: `make modelcheck-jax` through the port's CLI
+    sweep = {}
+    depth = MC_SWEEP_DEPTH
+    for name in sorted(mc.CONFIGS):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mc.main(["--config", name, "--depth", str(depth),
+                          "--engine", "torch", "--json"])
+        line = json.loads(buf.getvalue().strip().splitlines()[0])
+        sweep[name] = {k: line[k] for k in (
+            "states", "ok", "complete", "depth", "seconds",
+            "states_per_sec")}
+        sweep[name]["wall_s"] = time.perf_counter() - t0
+        print("mc sweep depth %d: %s %s" % (depth, name,
+                                            json.dumps(sweep[name])))
+        require(rc == 0 and line["ok"] and line["complete"],
+                "sweep %s at depth %d: %s" % (name, depth, line))
+    return {"probe": probe, "probe_seconds": probe_s, "launches": counts,
+            "calls": calls, "depth7_card_s": card7_s,
+            "depth7_cpu_s": cpu7_s, "depth7_counters": c_card,
+            "differential": diff, "sweep_depth": depth, "sweep": sweep,
+            "frontier_rows": int(frontier.shape[0])}, frontier
+
+
+def mc_timing(frontier, dev, bw, flops) -> dict:
+    """K5, K6 and K7 alone at the probe's chunk and at 65,536 rows of
+    real frontier states, beside their plain versions, the sort and
+    their bytes bounds."""
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    P = len(CONFIGS[MC_CONFIG].peers)
+    L = ma.Layout(P)
+    S = len(ma.slot_table(P))
+    knobs = torch.from_numpy(ma.make_knobs(CONFIGS[MC_CONFIG])).to(dev)
+    out = {"K5": {}, "K6": {}, "K7": {}}
+    for batch in (MC_CHUNK, MC_BULK):
+        vs = tile_rows(frontier, batch)
+        # at 65,536 rows a call takes milliseconds: fewer samples
+        kreps = dict(reps=7, inner=5) if batch > MC_CHUNK else {}
+        reps = dict(reps=3, inner=2) if batch > MC_CHUNK else {}
+        out["K5"][batch] = {
+            "ms": device_ms(mc_step.mc_step, [(vs, knobs, P)], **kreps),
+            "plain_ms": device_ms(mc_step.step_plain, [(vs, knobs, P)],
+                                  **reps),
+            "library_ms": None,
+            **bound(batch * L.SIZE * 4 + batch * S * (L.SIZE * 4 + 4 + 1),
+                    0, bw, 1.0)}
+        out["K6"][batch] = {
+            "ms": device_ms(mc_step.mc_liveness, [(vs, knobs, P)],
+                            **kreps),
+            "plain_ms": device_ms(mc_step.liveness_plain, [(vs, knobs, P)],
+                                  **reps),
+            "library_ms": None,
+            **bound(batch * L.SIZE * 4 + batch * 4, 0, bw, flops)}
+        ch, _vi, en = mc_step.mc_step(vs, knobs, P)
+        flat, valid = ch.view(-1, L.SIZE), en.reshape(-1)
+        n = flat.shape[0]
+        keys = mc_dedup.mc_sort_keys(flat, valid)
+        order = torch.sort(keys, stable=True).indices
+        hash_ms = device_ms(mc_dedup.mc_sort_keys, [(flat, valid)], **kreps)
+        keep_ms = device_ms(mc_dedup.mc_keep, [(flat, valid, order)],
+                            **kreps)
+        sort_ms = device_ms(lambda k: torch.sort(k, stable=True), [(keys,)],
+                            **kreps)
+        # each input read once, each output written once
+        out["K7"][batch] = {
+            "rows": n, "ms": hash_ms + keep_ms, "hash_ms": hash_ms,
+            "keep_ms": keep_ms, "sort_ms": sort_ms,
+            "dedup_ms": device_ms(mc_dedup.mc_dedup, [(flat, valid)], **kreps),
+            "plain_ms": device_ms(mc_dedup.dedup_plain, [(flat, valid)],
+                                  **reps),
+            "library_ms": sort_ms,
+            "valid_rows": int(valid.sum()),
+            "compare_bytes": int(valid.sum()) * 2 * L.SIZE * 4,
+            **bound(n * L.SIZE * 4 + n + n + n * 8, 0, bw, flops)}
+        del ch, flat, valid, keys, order
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3: the mesh step, timed in a rank
+
+
+def k3_rank(rank: int, world: int, device, batch: int) -> dict:
+    """One rank of dryrun_multichip's mesh step, timed: the whole step
+    (K2a, K2b as a reduction, the all-reduce, K2b), the all-reduce of
+    the 3,682 sums alone, and K2a + K2b alone on the same shard."""
+    import torch.distributed as dist
+
+    from manatee_tpu_torch.graft_entry import _dryrun_batch
+    from manatee_tpu_torch.health.predictor import (
+        make_mesh_train_step,
+        train_step,
+    )
+    from manatee_tpu_torch.kernels import mlp_train as k2
+
+    params, windows, labels = _dryrun_batch(device, batch)
+    shard = slice(rank * batch // world, (rank + 1) * batch // world)
+    x, y = windows[shard].contiguous(), labels[shard].contiguous()
+    step = make_mesh_train_step()
+    sums = torch.zeros(k2.GRAD_SIZE, device=device)
+    out = {"rank": rank, "world": world, "batch": batch,
+           "step_ms": device_ms(lambda: step(params, x, y, 1e-2), [()]),
+           "all_reduce_ms": device_ms(lambda t: dist.all_reduce(t),
+                                      [(sums,)]),
+           "k2_step_ms": device_ms(lambda: train_step(params, x, y, 1e-2),
+                                   [()])}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        step(params, x, y, 1e-2)
+    torch.cuda.synchronize()
+    out["step_wall_ms"] = 10 * (time.perf_counter() - t0)
+    return out
+
+
+def k3_timing(dev, bw: float, flops: float) -> dict:
+    """j. One mesh step in dryrun_multichip(1)'s rank on NCCL, B = 16,
+    and its bound: K2's at B = 16 plus a 3,682-float all-reduce."""
+    from manatee_tpu_torch.distributed import run_ranks
+    from manatee_tpu_torch.kernels import mlp_train as k2
+
+    batch = 16
+    (rank0,) = run_ranks(k3_rank, 1, dev, batch)
+    n_blocks = -(-batch // k2.ROWS_PER_BLOCK)
+    k2a = bound(batch * 81 * 4 + k2.N_PARAMS * 4
+                + n_blocks * k2.GRAD_SIZE * 4, batch * K2A_FLOP, bw, flops)
+    k2b = bound((n_blocks + 1) * k2.GRAD_SIZE * 4 + 2 * k2.N_PARAMS * 4,
+                n_blocks * k2.GRAD_SIZE + k2.GRAD_SIZE + 2 * k2.N_PARAMS,
+                bw, flops)
+    reduce_ms = 1e3 * 2 * k2.GRAD_SIZE * 4 / bw
+    out = {**rank0, "bound_ms": k2a["bound_ms"] + k2b["bound_ms"] + reduce_ms,
+           "bound_parts_ms": {"K2a": k2a["bound_ms"], "K2b": k2b["bound_ms"],
+                              "all_reduce": reduce_ms}}
+    print(json.dumps({"K3_mesh_step": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -556,7 +970,16 @@ def main() -> int:
     # i. whole-slice parity
     parity_err = slice_parity(dev)
 
-    # j. timing: the replay's and the training loop's device share, then
+    # j. K3: one mesh step in dryrun_multichip(1)'s rank, timed
+    k3 = k3_timing(dev, bw, flops)
+
+    # k. K5, K6, K7 against their plain versions on the edge batches;
+    # l. the model checker's main path, counts from 0, and its checks
+    check_mc_edges(dev)
+    checker, frontier = model_checker_path(dev)
+    print(json.dumps({"checker_path": checker}))
+
+    # m. timing: the replay's and the training loop's device share, then
     # each kernel alone at the paths' batches and a bulk batch
     print(json.dumps({"replay_profile": profile_run(
         lambda: [evaluate_recorded(files) for files in dirs.values()])}))
@@ -613,7 +1036,18 @@ def main() -> int:
             "library_ms": None,
             **bound(batch * 680 + 16 * 4, batch * K4_FLOP, bw, flops)}
 
-    # k. kernels line
+    # the checker's depth-7 run under the profiler, then K5-K7 alone
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+    print(json.dumps({"checker_profile": profile_run(
+        lambda: ma.explore_torch(CONFIGS[MC_CONFIG], depth=7,
+                                 chunk=MC_CHUNK))}))
+    timing.update(mc_timing(frontier, dev, bw, flops))
+    print(json.dumps({"checker_timing": {
+        k: {str(b): v for b, v in timing[k].items()}
+        for k in ("K5", "K6", "K7")}, "K3": k3}))
+
+    # n. kernels line
     rows = [
         ("K1", "K1_mlp_forward", "mlp_forward.cu",
          "manatee_tpu/health/predictor.py:55", launches, max_err),
@@ -626,26 +1060,40 @@ def main() -> int:
         ("K4", "K4_synthetic_batch", "synthetic_batch.cu",
          "manatee_tpu/health/predictor.py:110",
          trained["launches"]["K4"], 0.0),
+        ("K5", "K5_mc_step", "mc_array.cu",
+         "manatee_tpu/state/mc_array.py:1212",
+         checker["launches"]["K5"], 0.0),
+        ("K6", "K6_mc_liveness", "mc_array.cu",
+         "manatee_tpu/state/mc_array.py:1068",
+         checker["launches"]["K6"], 0.0),
+        ("K7", "K7_mc_dedup", "mc_dedup.cu",
+         "manatee_tpu/state/mc_array.py:1320",
+         checker["launches"]["K7_hash"], 0.0),
     ]
     kernels = []
     for key, kname, src, replaces, n, err in rows:
-        bulk = timing[key][BULK_BATCH]
+        batch = MC_BULK if key in ("K5", "K6", "K7") else BULK_BATCH
+        bulk = timing[key][batch]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "manatee_tpu_torch/kernels/csrc/" + src,
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": bulk["ms"], "plain_ms": bulk["plain_ms"],
             "bound_ms": bulk["bound_ms"], "bound_by": bulk["bound_by"],
-            "library_ms": bulk["library_ms"], "batch": BULK_BATCH,
+            "library_ms": bulk["library_ms"], "batch": batch,
             "by_batch": {str(b): v for b, v in timing[key].items()},
             "card": card})
     kernels[0]["serving_launches"] = launches
     kernels[0]["training_launches"] = trained["launches"]["K1"]
     kernels[0]["launches"] = launches + trained["launches"]["K1"]
     kernels[1]["slice_parity_100_steps"] = parity_err
+    # K7 is two kernels around the sort, each counted at its launch and
+    # required above to equal the recorded dedup calls
+    kernels[6]["hash_launches"] = checker["launches"]["K7_hash"]
+    kernels[6]["keep_launches"] = checker["launches"]["K7_keep"]
     print(json.dumps({"kernels": kernels}))
 
-    # l. result
+    # o. result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

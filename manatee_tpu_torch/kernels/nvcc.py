@@ -23,7 +23,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # every kernel source of the port, csrc/<name>.cu
-KERNELS = ("mlp_forward", "mlp_train", "synthetic_batch")
+KERNELS = ("mlp_forward", "mlp_train", "synthetic_batch", "mc_array",
+           "mc_dedup")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -154,6 +154,10 @@ rec = recorded_windows(%r[:1])
 assert len(rec[1]) > 0
 _model, loss, acc = train(steps=2, recorded=rec, device="cpu")
 assert loss > 0 and 0 <= acc <= 1
+from manatee_tpu_torch.state import mc_array, modelcheck
+res = mc_array.explore_torch(modelcheck.CONFIGS["deaths3"], depth=2,
+                             device="cpu")
+assert res.ok and res.complete and res.states > 1, res
 bad = [m for m in sys.modules if m.startswith("jax") or m == "manatee_tpu"
        or m.startswith("manatee_tpu.")]
 assert not bad, bad
