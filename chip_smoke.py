@@ -48,12 +48,27 @@ phase catches its own failure:
      six configs at depth 5 and the four mutation cases; the users'
      sweep (`make modelcheck-jax`: every config at depth 8) through the
      CLI with --engine torch;
+  p. (run after l) K8, the sharded engine, on the card, launch counts
+     set to 0 just before it: the probe configuration (promote, chunk
+     1024, depth 5 and 7) over 2 and 4 shards of one card and over every
+     visible card, each equal to the one-device run in states, digests,
+     traces, verdicts and counters; every sharded step and liveness call
+     equal to one unsharded K5/K6 launch on the same chunk, with one
+     launch per shard; differential for all six configs at depth 5 over
+     4 shards; the depth-7 wall over 1, 2, 4, 4, 2, 1 shards, and the
+     host's profile (cProfile) of that run on 1, 4, 4, 1; every kernel,
+     K1-K7, leaves the current device as it was (launched on a card
+     that is not current, where there are two or more);
+  q. (run after p) train()'s rank path as NCCL world 1 at the `make
+     train-health` configuration against train() on the card, within
+     TOL; train() over every card when more than one is visible;
   m. timing: the replay's, the training loop's and the checker's depth-7
      run's device busy and idle share (torch.profiler), then each kernel,
      its plain version and a library yardstick where one exists, timed
      with CUDA events (K5-K7 at chunk 1024 and at 65,536 rows of real
-     frontier states, with the sort's time apart);
-  n. one JSON line describing every kernel;
+     frontier states, with the sort's time apart; K8 over 1, 2 and 4
+     shards at both sizes, with the gather's time apart);
+  n. one JSON line describing every kernel, K1-K8;
   o. last line: {"ok": true, "device": {...}}.
 
 It exits non-zero and prints no result when CUDA is unavailable or the
@@ -723,7 +738,8 @@ def model_checker_path(dev) -> dict:
             "calls": calls, "depth7_card_s": card7_s,
             "depth7_cpu_s": cpu7_s, "depth7_counters": c_card,
             "differential": diff, "sweep_depth": depth, "sweep": sweep,
-            "frontier_rows": int(frontier.shape[0])}, frontier
+            "frontier_rows": int(frontier.shape[0])}, frontier, (
+                card7, c_card)
 
 
 def mc_timing(frontier, dev, bw, flops) -> dict:
@@ -784,6 +800,334 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the multi-device paths (slice 4): K8 and train()'s ranks
+
+MC_SHARDS = (1, 2, 4)            # K8's shard counts timed on the card
+
+
+class EngineRecorder:
+    """Keeps every call the explorer makes to K8's sharded step and
+    liveness while it is on: the inputs, the outputs and the K5 or K6
+    launches the call made.  Nothing is launched again to record them."""
+
+    def __init__(self):
+        self.calls = {"K5": [], "K6": []}
+
+    @contextlib.contextmanager
+    def on(self):
+        from manatee_tpu_torch.kernels import mc_step
+        from manatee_tpu_torch.state import mc_array as ma
+
+        orig = ma._engine
+
+        def record(key, fn, counter, P):
+            def call(vs, knobs):
+                before = counter.launches
+                out = fn(vs, knobs)
+                self.calls[key].append(((vs, knobs[0], P), out, len(knobs),
+                                        counter.launches - before))
+                return out
+            return call
+
+        def engine(P, chunk, devices):
+            step, live, dedup = orig(P, chunk, devices)
+            return (record("K5", step, mc_step.mc_step, P),
+                    record("K6", live, mc_step.mc_liveness, P), dedup)
+
+        ma._engine = engine
+        try:
+            yield self
+        finally:
+            ma._engine = orig
+
+
+def kernel_launches(dev) -> dict:
+    """One launch of each kernel of the five libraries on *dev*."""
+    from manatee_tpu_torch.health.predictor import (
+        init_params,
+        synthetic_draws,
+    )
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.kernels import mlp_forward as k1
+    from manatee_tpu_torch.kernels import mlp_train as k2
+    from manatee_tpu_torch.kernels import synthetic_batch as k4
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = init_params(g).tensors()
+    x = torch.rand(TRAIN_BATCH, 16, 5, generator=g, device=dev)
+    y = (torch.rand(TRAIN_BATCH, generator=g, device=dev) > 0.5).float()
+    cfg = CONFIGS[MC_CONFIG]
+    P = len(cfg.peers)
+    vs = torch.from_numpy(ma.encode_world(ma._boot(cfg, ma.Mutations()),
+                                          cfg))[None].to(dev)
+    knobs = torch.from_numpy(ma.make_knobs(cfg)).to(dev)
+    ch, _vi, en = mc_step.mc_step(vs, knobs, P)
+    flat, valid = ch.view(-1, ch.shape[-1]), en.reshape(-1)
+    order = torch.sort(mc_dedup.mc_sort_keys(flat, valid), stable=True).indices
+    partials = k2.mlp_train_partials(x, y, *w)
+    return {
+        "K1": lambda: k1.mlp_forward(x, *w),
+        "K2a": lambda: k2.mlp_train_partials(x, y, *w),
+        "K2b": lambda: k2.mlp_sgd_apply(partials, 1 / TRAIN_BATCH, w, 0.05),
+        "K4": lambda: k4.synthetic_windows(synthetic_draws(g, 64, dev)),
+        "K5": lambda: mc_step.mc_step(vs, knobs, P),
+        "K6": lambda: mc_step.mc_liveness(vs, knobs, P),
+        "K7_hash": lambda: mc_dedup.mc_sort_keys(flat, valid),
+        "K7_keep": lambda: mc_dedup.mc_keep(flat, valid, order),
+    }
+
+
+def check_current_device() -> dict:
+    """Every kernel, K1-K7, launched on each card with another card
+    current where there is one: the current device is unchanged after
+    every launch."""
+    n = torch.cuda.device_count()
+    before = torch.cuda.current_device()
+    checked = {}
+    try:
+        for card in range(n):
+            current = (card + 1) % n
+            torch.cuda.set_device(current)
+            launches = kernel_launches(torch.device("cuda", card))
+            torch.cuda.set_device(current)
+            for name, launch in launches.items():
+                launch()
+                require(torch.cuda.current_device() == current,
+                        "%s on cuda:%d moved the current device from %d to %d"
+                        % (name, card, current, torch.cuda.current_device()))
+                checked[name] = checked.get(name, 0) + 1
+            torch.cuda.synchronize(card)
+    finally:
+        torch.cuda.set_device(before)
+    print("current device unchanged after every launch of %s on %d card(s)%s"
+          % (sorted(checked), n, "" if n > 1 else
+             " (one card: launched on the current card; the repair is "
+             "exercised only with two or more)"))
+    return {"cards": n, "launches": checked}
+
+
+def sharded_checker(dev, card7, c_card) -> dict:
+    """p. K8 on the card, counts from 0: the probe configuration at depth
+    5 and 7 over 2 and 4 shards of one card and over every visible card,
+    against the one-device run; every sharded call against one
+    unsharded launch; differential over 4 shards; the current device."""
+    from manatee_tpu_torch.kernels import mc_step
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state import modelcheck as mc
+
+    cfg = mc.CONFIGS[MC_CONFIG]
+    runs = {"2 shards": [dev] * 2, "4 shards": [dev] * 4,
+            "every card": None}
+    rec = EngineRecorder()
+    seconds = {}
+    mc_reset_counts()
+    with rec.on():
+        for label, devices in runs.items():
+            t0 = time.perf_counter()
+            r5 = ma.explore_torch(cfg, depth=5, chunk=MC_CHUNK,
+                                  device=devices)
+            got7, r7, _s = collect_run(devices, 7)
+            seconds[label] = time.perf_counter() - t0
+            c7 = (r7.states, r7.nodes, r7.transitions, r7.depth_reached,
+                  r7.complete, r7.ok)
+            require(r5.ok and r5.complete and r5.states == PROMOTE_STATES[5]
+                    and r7.ok and r7.complete
+                    and r7.states == PROMOTE_STATES[7],
+                    "K8 %s: promote states %d, %d" % (label, r5.states,
+                                                      r7.states))
+            require(got7 == card7 and c7 == c_card,
+                    "K8 %s: depth 7 %s vs one device %s (digests equal: %s)"
+                    % (label, c7, c_card, got7.keys() == card7.keys()))
+            print("K8 %s: promote %d states at depth 5, %d at depth 7; "
+                  "digests, traces, verdicts and counters equal to one "
+                  "device" % (label, r5.states, r7.states))
+    torch.cuda.synchronize()
+    counts = mc_read_counts()
+    require(all(n > 0 for n in counts.values()), "K8 launches %s" % counts)
+    for key in ("K5", "K6"):
+        require(counts[key] == sum(c[3] for c in rec.calls[key]),
+                "K8: %s launches %d vs the sharded calls' %d" % (
+                    key, counts[key], sum(c[3] for c in rec.calls[key])))
+
+    # every sharded call against one unsharded launch on the same chunk
+    for key, calls in rec.calls.items():
+        kernel = mc_step.mc_step if key == "K5" else mc_step.mc_liveness
+        for (vs, knobs, P), out, shards, launched in calls:
+            require(launched == shards, "K8 %s: %d launches for %d shards"
+                    % (key, launched, shards))
+            want = kernel(vs.to(dev), knobs, P)
+            same = (all(torch.equal(a, b) for a, b in zip(out, want))
+                    if key == "K5" else torch.equal(out, want))
+            require(same, "K8 %s over %d shards differs from one launch"
+                    % (key, shards))
+    calls = {k: len(v) for k, v in rec.calls.items()}
+    shard_counts = sorted({c[2] for v in rec.calls.values() for c in v})
+    rec.calls = None
+    print("K8 vs one unsharded launch: equal on every sharded call (K5 %d, "
+          "K6 %d; shards %s)" % (calls["K5"], calls["K6"], shard_counts))
+
+    diff = {}
+    for name in sorted(mc.CONFIGS):
+        t0 = time.perf_counter()
+        pres, tres = ma.differential(mc.CONFIGS[name], depth=5,
+                                     device=[dev] * 4)
+        require(pres.complete and tres.complete and pres.ok and tres.ok,
+                "differential %s at depth 5 over 4 shards" % name)
+        diff[name] = {"states": tres.states,
+                      "seconds": time.perf_counter() - t0}
+    print("K8 differential over 4 shards: %s" % json.dumps(diff))
+
+    # the depth-7 wall of the probe's run over 1, 2 and 4 shards, in both
+    # orders (a run's place in the sequence must not pass for its shards)
+    wall = {k: [] for k in MC_SHARDS}
+    for k in MC_SHARDS + MC_SHARDS[::-1]:
+        res = ma.explore_torch(cfg, depth=7, chunk=MC_CHUNK, device=[dev] * k)
+        wall[k].append(res.seconds)
+    print("K8 depth-7 wall (s, in order 1 2 4 4 2 1): %s" % json.dumps(wall))
+    # where the host's time goes in that run, on 1 shard and on 4, in turns
+    profiles = {1: [], 4: []}
+    for k in (1, 4, 4, 1):
+        profiles[k].append(host_profile(lambda: ma.explore_torch(
+            cfg, depth=7, chunk=MC_CHUNK, device=[dev] * k)))
+    print("K8 depth-7 host profile (1 4 4 1): %s" % json.dumps(profiles))
+    return {"launches": counts, "calls": calls, "shards": shard_counts,
+            "seconds": seconds, "differential": diff, "depth7_wall": wall,
+            "depth7_host_profile": profiles,
+            "current_device": check_current_device()}
+
+
+def host_profile(run) -> dict:
+    """cProfile of run() on the host: the ten functions with the most
+    own time, as {"file:line(function)": {"calls", "own_ms"}}."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    torch.cuda.synchronize()
+    prof.disable()
+    top = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: -kv[1][2])[:10]
+    return {"%s:%d(%s)" % (Path(f).name, line, fn): {"calls": nc,
+                                                     "own_ms": 1e3 * tt}
+            for (f, line, fn), (_cc, nc, tt, _ct, _callers) in top}
+
+
+def train_rank_counted(rank: int, world: int, device, *args):
+    """health.train._train_rank with the launch counts from 0: its
+    result and the counts of this rank's process."""
+    from manatee_tpu_torch.health.train import _train_rank
+
+    reset_counts()
+    out = _train_rank(rank, world, device, *args)
+    torch.cuda.synchronize(device)
+    return out, read_counts()
+
+
+def train_ranks(dirs, dev) -> dict:
+    """q. train()'s rank path as NCCL world 1 at the `make train-health`
+    configuration against train() on the card; over every card when
+    there are several."""
+    from manatee_tpu_torch.distributed import run_ranks
+    from manatee_tpu_torch.health import train
+
+    steps, lr, seed, frac = 300, 5e-2, 0, 0.03
+    recorded = train.recorded_windows([f for d in MIX for f in dirs[d]])
+    t0 = time.perf_counter()
+    ((params, loss), counts), = run_ranks(
+        train_rank_counted, 1, "cuda", steps, TRAIN_BATCH, lr, seed,
+        recorded, frac)
+    rank_s = time.perf_counter() - t0
+    require(counts["K2a"] == steps and counts["K2b"] == 2 * steps
+            and counts["K4"] == steps, "rank launches %s" % counts)
+    model, want_loss, _acc = train.train(steps, TRAIN_BATCH, lr, seed,
+                                         recorded, frac, device=dev)
+    want = model.tensors()
+    err = max([abs(loss - want_loss)]
+              + [float(np.abs(params[k] - t.cpu().numpy()).max())
+                 for k, t in zip(params, want)])
+    print("train() rank path, NCCL world 1, %d steps of %d: |d| vs train() "
+          "on the card %.3g (tolerance %g); rank launches %s"
+          % (steps, TRAIN_BATCH, err, TOL, counts))
+    require(err <= TOL, "rank path vs train() |d| = %g" % err)
+    out = {"world_1_max_abs_err": err, "rank_launches": counts,
+           "rank_seconds": rank_s}
+    n = torch.cuda.device_count()
+    if n > 1:
+        multi, multi_loss, _acc = train.train(steps, TRAIN_BATCH, lr, seed,
+                                              recorded, frac, device=None)
+        err_n = max([abs(multi_loss - want_loss)]
+                    + [max_diff(multi.tensors(), want)])
+        print("train() over %d cards vs one card |d| %.3g" % (
+            train.usable_devices(n, TRAIN_BATCH), err_n))
+        require(err_n <= TOL, "train() over the cards |d| = %g" % err_n)
+        out["cards_max_abs_err"] = err_n
+    else:
+        print("train() over several cards: not run, 1 card visible (the "
+              "world-1 rank path above is the path a multi-card run takes)")
+    return out
+
+
+def k8_timing(frontier, dev, bw, flops) -> dict:
+    """K8's sharded step and liveness over 1, 2 and 4 shards of the card
+    at the probe's chunk and at 65,536 rows of real frontier states, the
+    gather apart, beside the plain versions over 4 shards and the
+    bounds."""
+    from manatee_tpu_torch.kernels import mc_step
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    cfg = CONFIGS[MC_CONFIG]
+    P = len(cfg.peers)
+    L = ma.Layout(P)
+    S = len(ma.slot_table(P))
+    knobs = ma.make_knobs(cfg)
+    out = {}
+    for batch in (MC_CHUNK, MC_BULK):
+        vs = tile_rows(frontier, batch)
+        reps = dict(reps=7, inner=5) if batch > MC_CHUNK else {}
+        step_bytes = batch * L.SIZE * 4 + batch * S * (L.SIZE * 4 + 4 + 1)
+        live_bytes = batch * L.SIZE * 4 + batch * 4
+        gathered = batch * S * (L.SIZE * 4 + 4 + 1) + batch * 4
+        by_k = {}
+        for k in MC_SHARDS:
+            devices = [dev] * k
+            step, live, _dedup = ma._engine(P, batch, devices)
+            kr = ma.replicate_knobs(knobs, devices)
+            shards = [mc_step.mc_step(s, kr[0], P) for s in vs.chunk(k)]
+            lv = [mc_step.mc_liveness(s, kr[0], P) for s in vs.chunk(k)]
+            by_k[k] = {
+                "step_ms": device_ms(step, [(vs, kr)], **reps),
+                "live_ms": device_ms(live, [(vs, kr)], **reps),
+                "gather_ms": (device_ms(lambda: (ma._gather(shards, dev),
+                                                 ma._gather(lv, dev)),
+                                        [()], **reps) if k > 1 else 0.0)}
+            by_k[k]["ms"] = by_k[k]["step_ms"] + by_k[k]["live_ms"]
+            del shards, lv
+        k = MC_SHARDS[-1]
+        devices = [dev] * k
+        kr = ma.replicate_knobs(knobs, devices)
+        plain = (ma.shard_map(mc_step.step_plain, P, batch, devices),
+                 ma.shard_map(mc_step.liveness_plain, P, batch, devices))
+        plain_ms = sum(device_ms(fn, [(vs, kr)], reps=3, inner=2)
+                       for fn in plain)
+        out[batch] = {
+            **by_k[k], "shards": k, "by_shards": by_k, "plain_ms": plain_ms,
+            "library_ms": None,
+            **bound(step_bytes + live_bytes, 0, bw, flops),
+            "bound_with_gather_ms": 1e3 * (step_bytes + live_bytes
+                                           + 2 * gathered) / bw,
+            # four cards: three quarters of the children cross NVLink
+            # into card 0 at 450 GB/s each way
+            "nvlink_gather_4_cards_bound_ms":
+                1e3 * 0.75 * (gathered - batch * 4) / 450e9}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K3: the mesh step, timed in a rank
 
 
@@ -805,8 +1149,17 @@ def k3_rank(rank: int, world: int, device, batch: int) -> dict:
     x, y = windows[shard].contiguous(), labels[shard].contiguous()
     step = make_mesh_train_step()
     sums = torch.zeros(k2.GRAD_SIZE, device=device)
+    w = params.tensors()
+
+    def plain_step():
+        """The mesh step's plain version, in _sgd_step's order."""
+        s, _ = k2.sgd_apply_plain(k2.grad_sums_plain(x, y, *w)[None], 1.0)
+        dist.all_reduce(s)
+        return k2.sgd_apply_plain(s[None], 1.0 / batch, w, 1e-2)
+
     out = {"rank": rank, "world": world, "batch": batch,
            "step_ms": device_ms(lambda: step(params, x, y, 1e-2), [()]),
+           "plain_step_ms": device_ms(plain_step, [()]),
            "all_reduce_ms": device_ms(lambda t: dist.all_reduce(t),
                                       [(sums,)]),
            "k2_step_ms": device_ms(lambda: train_step(params, x, y, 1e-2),
@@ -836,6 +1189,7 @@ def k3_timing(dev, bw: float, flops: float) -> dict:
                 bw, flops)
     reduce_ms = 1e3 * 2 * k2.GRAD_SIZE * 4 / bw
     out = {**rank0, "bound_ms": k2a["bound_ms"] + k2b["bound_ms"] + reduce_ms,
+           "bound_by": max(k2a, k2b, key=lambda b: b["bound_ms"])["bound_by"],
            "bound_parts_ms": {"K2a": k2a["bound_ms"], "K2b": k2b["bound_ms"],
                               "all_reduce": reduce_ms}}
     print(json.dumps({"K3_mesh_step": out}))
@@ -976,8 +1330,15 @@ def main() -> int:
     # k. K5, K6, K7 against their plain versions on the edge batches;
     # l. the model checker's main path, counts from 0, and its checks
     check_mc_edges(dev)
-    checker, frontier = model_checker_path(dev)
+    checker, frontier, one_device7 = model_checker_path(dev)
     print(json.dumps({"checker_path": checker}))
+
+    # p. K8 on the card, counts from 0; q. train()'s rank path
+    sharded = sharded_checker(torch.device("cuda", 0), *one_device7)
+    print(json.dumps({"sharded_checker": sharded}))
+    del one_device7
+    trained_ranks = train_ranks(dirs, dev)
+    print(json.dumps({"train_ranks": trained_ranks}))
 
     # m. timing: the replay's and the training loop's device share, then
     # each kernel alone at the paths' batches and a bulk batch
@@ -1043,9 +1404,10 @@ def main() -> int:
         lambda: ma.explore_torch(CONFIGS[MC_CONFIG], depth=7,
                                  chunk=MC_CHUNK))}))
     timing.update(mc_timing(frontier, dev, bw, flops))
+    timing["K8"] = k8_timing(frontier, torch.device("cuda", 0), bw, flops)
     print(json.dumps({"checker_timing": {
         k: {str(b): v for b, v in timing[k].items()}
-        for k in ("K5", "K6", "K7")}, "K3": k3}))
+        for k in ("K5", "K6", "K7", "K8")}, "K3": k3}))
 
     # n. kernels line
     rows = [
@@ -1069,14 +1431,20 @@ def main() -> int:
         ("K7", "K7_mc_dedup", "mc_dedup.cu",
          "manatee_tpu/state/mc_array.py:1320",
          checker["launches"]["K7_hash"], 0.0),
+        # K8 launches K5 and K6 on each shard: its launches are theirs in
+        # phase p's sharded calls
+        ("K8", "K8_mc_engine_sharded", "manatee_tpu_torch/state/mc_array.py",
+         "manatee_tpu/state/mc_array.py:1354",
+         sharded["launches"]["K5"] + sharded["launches"]["K6"], 0.0),
     ]
     kernels = []
     for key, kname, src, replaces, n, err in rows:
-        batch = MC_BULK if key in ("K5", "K6", "K7") else BULK_BATCH
+        batch = MC_BULK if key in ("K5", "K6", "K7", "K8") else BULK_BATCH
         bulk = timing[key][batch]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "manatee_tpu_torch/kernels/csrc/" + src,
+            "source": (src if "/" in src
+                       else "manatee_tpu_torch/kernels/csrc/" + src),
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": bulk["ms"], "plain_ms": bulk["plain_ms"],
             "bound_ms": bulk["bound_ms"], "bound_by": bulk["bound_by"],
@@ -1091,6 +1459,23 @@ def main() -> int:
     # required above to equal the recorded dedup calls
     kernels[6]["hash_launches"] = checker["launches"]["K7_hash"]
     kernels[6]["keep_launches"] = checker["launches"]["K7_keep"]
+    kernels[7]["k5_launches"] = sharded["launches"]["K5"]
+    kernels[7]["k6_launches"] = sharded["launches"]["K6"]
+    kernels[7]["sharded_calls"] = sharded["calls"]
+    # K3 is K2a + K2b per rank and one all-reduce: its launches are
+    # theirs in phase q's rank path, its time one step at B = 16 (phase j)
+    ranks = trained_ranks["rank_launches"]
+    kernels.insert(3, {
+        "name": "K3_mesh_train_step", "route": "cuda",
+        "source": "manatee_tpu_torch/health/predictor.py",
+        "replaces": "manatee_tpu/health/predictor.py:86",
+        "launches": ranks["K2a"] + ranks["K2b"], "max_abs_err":
+        trained_ranks["world_1_max_abs_err"], "ms": k3["step_ms"],
+        "plain_ms": k3["plain_step_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": None,
+        "batch": k3["batch"],
+        "k2a_launches": ranks["K2a"], "k2b_launches": ranks["K2b"],
+        "card": card})
     print(json.dumps({"kernels": kernels}))
 
     # o. result

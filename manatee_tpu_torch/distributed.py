@@ -5,10 +5,12 @@
 starts n processes (torch.multiprocessing.spawn), rank r running
 ``fn(rank, world_size, device, *args)`` inside the default process group
 and returning a picklable result; it returns the results in rank order.
-On CUDA each rank owns one card (``cuda:<rank>``) and the group is NCCL;
-on the CPU it is gloo.  Ranks meet through a FileStore in a temporary
-directory, so no port is opened for the rendezvous.  Asking for more
-CUDA ranks than there are cards raises: nothing falls back to gloo.
+On CUDA each rank owns one card (``cuda:<rank>``, or the r-th of a list
+of n devices) and the group is NCCL; on the CPU it is gloo.  Ranks meet
+through a FileStore in a temporary directory, so no port is opened for
+the rendezvous.  Asking for more CUDA ranks than there are cards, or
+for one card twice (NCCL puts one rank on a card), raises: nothing falls
+back to gloo.
 """
 
 from __future__ import annotations
@@ -20,19 +22,18 @@ import tempfile
 import torch
 import torch.multiprocessing as mp
 
-from manatee_tpu_torch.device import resolve
+from manatee_tpu_torch.device import resolve, resolve_all
 
 
-def _rank_main(rank: int, world: int, device_type: str, tmp: str,
+def _rank_main(rank: int, world: int, devices: list, tmp: str,
                fn, args: tuple) -> None:
     import torch.distributed as dist
 
-    if device_type == "cuda":
-        device = torch.device("cuda", rank)
+    device = devices[rank]
+    if device.type == "cuda":
         torch.cuda.set_device(device)
         backend = "nccl"
     else:
-        device = torch.device("cpu")
         # n ranks share the host's cores: one thread each
         torch.set_num_threads(1)
         backend = "gloo"
@@ -48,20 +49,31 @@ def _rank_main(rank: int, world: int, device_type: str, tmp: str,
         pickle.dump(out, fh)
 
 
-def run_ranks(fn, n: int, device: str | torch.device | None = None,
-              *args) -> list:
+def run_ranks(fn, n: int, device=None, *args) -> list:
     """fn(rank, n, rank's torch.device, *args) on n ranks; the results in
-    rank order.  *fn* and *args* must pickle (a module-level function).
-    When a rank fails, the others are ended and
-    torch.multiprocessing.ProcessRaisedException carries its traceback."""
+    rank order.  *device* is a device type or device (rank r on card r on
+    CUDA) or a list of n devices, one per rank.  *fn* and *args* must
+    pickle (a module-level function).  When a rank fails, the others are
+    ended and torch.multiprocessing.ProcessRaisedException carries its
+    traceback."""
     if n < 1:
         raise ValueError("n must be >= 1")
-    dev = resolve(device)
-    if dev.type == "cuda" and n > torch.cuda.device_count():
-        raise RuntimeError("%d CUDA ranks asked for, %d cards present"
-                           % (n, torch.cuda.device_count()))
+    if isinstance(device, (list, tuple)):
+        devices = resolve_all(device)
+        if len(devices) != n:
+            raise ValueError("%d ranks, %d devices" % (n, len(devices)))
+    else:
+        dev = resolve(device)
+        if dev.type == "cuda" and n > torch.cuda.device_count():
+            raise RuntimeError("%d CUDA ranks asked for, %d cards present"
+                               % (n, torch.cuda.device_count()))
+        devices = [torch.device("cuda", r) if dev.type == "cuda"
+                   else torch.device("cpu") for r in range(n)]
+    if devices[0].type == "cuda" and len(set(devices)) < n:
+        raise ValueError("NCCL takes one rank a card; %s repeats one"
+                         % devices)
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_rank_main, args=(n, dev.type, tmp, fn, args), nprocs=n,
+        mp.spawn(_rank_main, args=(n, devices, tmp, fn, args), nprocs=n,
                  join=True)
         out = []
         for rank in range(n):

@@ -7,16 +7,18 @@ ported from manatee_tpu/health/train.py.
 ``train`` runs every step on the device: the draws (the device's own
 generator), the synthetic batch (K4), the gather of the recorded rows,
 the fused loss, gradient and SGD step (K2a + K2b), and the held-out
-accuracy (K4 + K1).  ``export`` writes the .npz the scorers load.
+accuracy (K4 + K1).  Given several devices (``device=None`` on a machine
+with more than one card, or a list), it runs, as the reference's mesh
+path does (train.py:159-180), on the largest number of them that divides
+the batch: one rank each (``distributed.run_ranks``, NCCL on cards,
+gloo on the CPU), each stepping on its block of every batch through
+``make_mesh_train_step`` (K2a + K2b per rank and one all-reduce, K3).
+``export`` writes the .npz the scorers load.
 ``evaluate`` feeds simulated probe ticks through the deployed ring and
 scorer, one ``predict`` call (one K1 launch on CUDA) per scored tick, as
 a sitter scores.  ``evaluate_recorded`` replays recorded telemetry
 dumps, one ``predict`` call per trace.  Each returns the reference's
 dict.
-
-Unlike the reference, ``train`` runs on one device: its mesh path for
-several devices (train.py:159-180) is not ported;
-``make_mesh_train_step`` is, and ``graft_entry.dryrun_multichip`` runs it.
 """
 
 from __future__ import annotations
@@ -27,11 +29,17 @@ import json
 import numpy as np
 import torch
 
-from manatee_tpu_torch.device import resolve
-from manatee_tpu_torch.health.convert import save_npz
+from manatee_tpu_torch.device import resolve, resolve_all
+from manatee_tpu_torch.distributed import run_ranks
+from manatee_tpu_torch.health.convert import (
+    params_from_numpy,
+    params_to_numpy,
+    save_npz,
+)
 from manatee_tpu_torch.health.predictor import (
     HealthModel,
     init_params,
+    make_mesh_train_step,
     predict,
     synthetic_batch,
     train_step,
@@ -188,23 +196,63 @@ def training_batches(steps: int = 300, batch: int = 256, seed: int = 0,
         yield w, y
 
 
+def usable_devices(n: int, batch: int) -> int:
+    """How many of *n* devices train() runs on: the largest count that
+    divides the batch, as the reference sizes its mesh (train.py:160-169;
+    its device_put rejects a data axis that does not divide the batch)."""
+    return max(d for d in range(1, n + 1) if batch % d == 0)
+
+
+def _train_rank(rank: int, world: int, device: torch.device, steps: int,
+                batch: int, lr: float, seed: int, recorded, recorded_frac
+                ) -> tuple[dict, float]:
+    """One rank of a multi-device train(): the parameters from *seed* on
+    its own device, then per step the full batch of training_batches and
+    a mesh step on rows [rank·B/world, (rank+1)·B/world), the block
+    device_put with PartitionSpec("data") gives device *rank*.  Returns
+    (parameters as numpy, last global loss).
+
+    Each rank draws the whole batch (K4 on 256 rows, microseconds)
+    rather than receiving its block: the batches stay bit-identical to
+    the one-device path's, with no broadcast."""
+    model = init_params(torch.Generator(device=device).manual_seed(seed))
+    step = make_mesh_train_step()
+    rows = slice(rank * batch // world, (rank + 1) * batch // world)
+    for w, y in training_batches(steps, batch, seed, recorded,
+                                 recorded_frac, device):
+        model, loss = step(model, w[rows], y[rows], lr)
+    return params_to_numpy(model), float(loss)
+
+
 def train(steps: int = 300, batch: int = 256, lr: float = 5e-2,
           seed: int = 0, recorded: tuple | None = None,
           recorded_frac: float = 0.03,
-          device: str | torch.device | None = None
-          ) -> tuple[HealthModel, float, float]:
+          device=None) -> tuple[HealthModel, float, float]:
     """Train from init_params(seed) for *steps* SGD steps on the batches
-    of training_batches, on *device* (default CUDA); returns (model, last
-    loss, held-out accuracy on 2,048 fresh synthetic windows).  Every
-    draw comes from the device's own generator, so a card and the CPU
-    train on other batches from one seed."""
+    of training_batches, on *device* (default: every visible CUDA card;
+    one device, or a list as ``device.resolve_all`` takes it); returns
+    (model, last loss, held-out accuracy on 2,048 fresh synthetic
+    windows), the model and the accuracy on the first device.  With
+    more than one device, the largest number of them that divides the
+    batch train as ranks of one process group (``_train_rank``); on
+    CUDA they must be distinct cards.  Every draw comes from the
+    device's own generator, so a card and the CPU train on other batches
+    from one seed."""
     if steps < 1:
         raise ValueError("steps must be >= 1")
-    dev = resolve(device)
-    model = init_params(torch.Generator(device=dev).manual_seed(seed))
-    for w, y in training_batches(steps, batch, seed, recorded,
-                                 recorded_frac, dev):
-        model, loss = train_step(model, w, y, lr)
+    devices = resolve_all(device)
+    dev = devices[0]
+    usable = usable_devices(len(devices), batch)
+    if usable > 1:
+        (params, loss), *_ = run_ranks(
+            _train_rank, usable, devices[:usable], steps, batch, lr, seed,
+            recorded, recorded_frac)
+        model = params_from_numpy(params).to(dev)
+    else:
+        model = init_params(torch.Generator(device=dev).manual_seed(seed))
+        for w, y in training_batches(steps, batch, seed, recorded,
+                                     recorded_frac, dev):
+            model, loss = train_step(model, w, y, lr)
 
     w, y = synthetic_batch(
         torch.Generator(device=dev).manual_seed(seed + 999), 2048, dev)

@@ -833,6 +833,23 @@ int launch_liveness(const int* vs, const int* knobs, int* bits, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Runs launch() with `device` current and makes the caller's device current
+// again on every return path, so that a process driving several cards keeps
+// its own current device across a launch.  Returns launch()'s cudaError_t,
+// or the error of getting or setting the device.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int rc = launch();
+  if (prev != device && (err = cudaSetDevice(prev)) != cudaSuccess && rc == 0)
+    return static_cast<int>(err);
+  return rc;
+}
+
 }  // namespace
 
 // Launches K5 on `stream` (a cudaStream_t) of `device` over `batch` >= 1
@@ -844,14 +861,14 @@ int launch_liveness(const int* vs, const int* knobs, int* bits, int batch,
 extern "C" int mc_step_launch(const int* vs, const int* knobs, int* children,
                               int* viols, unsigned char* enabled, int batch,
                               int peers, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (peers == 3)
-    return launch_step<3>(vs, knobs, children, viols, enabled, batch, s);
-  if (peers == 4)
-    return launch_step<4>(vs, knobs, children, viols, enabled, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(device, [&] {
+    if (peers == 3)
+      return launch_step<3>(vs, knobs, children, viols, enabled, batch, s);
+    if (peers == 4)
+      return launch_step<4>(vs, knobs, children, viols, enabled, batch, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 // Launches K6 likewise: vs (batch, SIZE) int32, knobs (9,) int32, bits
@@ -859,12 +876,12 @@ extern "C" int mc_step_launch(const int* vs, const int* knobs, int* children,
 extern "C" int mc_liveness_launch(const int* vs, const int* knobs, int* bits,
                                   int batch, int peers, int device,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (peers == 3) return launch_liveness<3>(vs, knobs, bits, batch, s);
-  if (peers == 4) return launch_liveness<4>(vs, knobs, bits, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(device, [&] {
+    if (peers == 3) return launch_liveness<3>(vs, knobs, bits, batch, s);
+    if (peers == 4) return launch_liveness<4>(vs, knobs, bits, batch, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }
 
 extern "C" const char* mc_error_string(int code) {

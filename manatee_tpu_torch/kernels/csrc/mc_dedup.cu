@@ -76,6 +76,23 @@ unsigned blocks_for(int n) {
                                kThreads);
 }
 
+// Runs launch() with `device` current and makes the caller's device current
+// again on every return path, so that a process driving several cards keeps
+// its own current device across a launch.  Returns launch()'s cudaError_t,
+// or the error of getting or setting the device.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int rc = launch();
+  if (prev != device && (err = cudaSetDevice(prev)) != cudaSuccess && rc == 0)
+    return static_cast<int>(err);
+  return rc;
+}
+
 }  // namespace
 
 // Launches the hash kernel on `stream` of `device`: rows (n, w) int32,
@@ -84,12 +101,12 @@ unsigned blocks_for(int n) {
 extern "C" int mc_hash_launch(const int* rows, const unsigned char* valid,
                               long long* keys, int n, int w, int device,
                               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mc_hash_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(rows, valid, keys, n,
-                                                        w);
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    mc_hash_kernel<<<blocks_for(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(rows, valid, keys,
+                                                          n, w);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // Launches the keep kernel likewise: order (n,) int64 (a permutation of
@@ -97,12 +114,12 @@ extern "C" int mc_hash_launch(const int* rows, const unsigned char* valid,
 extern "C" int mc_keep_launch(const int* rows, const unsigned char* valid,
                               const long long* order, unsigned char* keep,
                               int n, int w, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mc_keep_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(rows, valid, order,
-                                                        keep, n, w);
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    mc_keep_kernel<<<blocks_for(n), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(rows, valid, order,
+                                                          keep, n, w);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" const char* mc_dedup_error_string(int code) {

@@ -123,6 +123,23 @@ mlp_forward_kernel(const float* __restrict__ x,
   out[row0 + t] = 1.f / (1.f + expf(-z));
 }
 
+// Runs launch() with `device` current and makes the caller's device current
+// again on every return path, so that a process driving several cards keeps
+// its own current device across a launch.  Returns launch()'s cudaError_t,
+// or the error of getting or setting the device.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int rc = launch();
+  if (prev != device && (err = cudaSetDevice(prev)) != cudaSuccess && rc == 0)
+    return static_cast<int>(err);
+  return rc;
+}
+
 }  // namespace
 
 // Launches K1 on `stream` (a cudaStream_t) of `device` over `batch` >= 1
@@ -135,13 +152,14 @@ extern "C" int mlp_forward_launch(const float* x, const float* w1,
                                   const float* b2, const float* w3,
                                   const float* b3, float* out, int batch,
                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks =
       static_cast<unsigned>((static_cast<long long>(batch) + kRows - 1) / kRows);
-  mlp_forward_kernel<<<blocks, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w1, b1, w2, b2, w3, b3, out, batch);
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    mlp_forward_kernel<<<blocks, kRows, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        x, w1, b1, w2, b2, w3, b3, out, batch);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" const char* mlp_forward_error_string(int code) {

@@ -273,6 +273,23 @@ __global__ void mlp_sgd_apply_kernel(const float* __restrict__ partials,
   q[at] = __fsub_rn(p[at], __fmul_rn(lr, g));
 }
 
+// Runs launch() with `device` current and makes the caller's device current
+// again on every return path, so that a process driving several cards keeps
+// its own current device across a launch.  Returns launch()'s cudaError_t,
+// or the error of getting or setting the device.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int rc = launch();
+  if (prev != device && (err = cudaSetDevice(prev)) != cudaSuccess && rc == 0)
+    return static_cast<int>(err);
+  return rc;
+}
+
 }  // namespace
 
 // Launches K2a on `stream` (a cudaStream_t) of `device` over `batch` >= 1
@@ -283,18 +300,18 @@ extern "C" int mlp_train_partials_launch(
     const float* x, const float* y, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* w3, const float* b3,
     float* partials, int batch, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(mlp_train_partials_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks =
       static_cast<unsigned>((static_cast<long long>(batch) + kRows - 1) / kRows);
-  mlp_train_partials_kernel<<<blocks, kThreads, kSmemBytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, y, w1, b1, w2, b2, w3, b3, partials, batch);
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mlp_train_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mlp_train_partials_kernel<<<blocks, kThreads, kSmemBytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+        x, y, w1, b1, w2, b2, w3, b3, partials, batch);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // Launches K2b: sums [3682] = scale * the sum of partials [n, 3682] over
@@ -306,15 +323,16 @@ extern "C" int mlp_sgd_apply_launch(
     const float* p3, const float* p4, const float* p5, float* out0,
     float* out1, float* out2, float* out3, float* out4, float* out5,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const Params params{{p0, p1, p2, p3, p4, p5},
                       {out0, out1, out2, out3, out4, out5}};
   constexpr int kThreadsApply = 256;
-  mlp_sgd_apply_kernel<<<(kOut + kThreadsApply - 1) / kThreadsApply,
-                         kThreadsApply, 0, static_cast<cudaStream_t>(stream)>>>(
-      partials, sums, n, scale, lr, apply, params);
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    mlp_sgd_apply_kernel<<<(kOut + kThreadsApply - 1) / kThreadsApply,
+                           kThreadsApply, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        partials, sums, n, scale, lr, apply, params);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" const char* mlp_train_error_string(int code) {

@@ -120,6 +120,23 @@ synthetic_batch_kernel(const float* __restrict__ label_u,
     dst[i] = tile[(i / kRowFloats) * kPitch + i % kRowFloats];
 }
 
+// Runs launch() with `device` current and makes the caller's device current
+// again on every return path, so that a process driving several cards keeps
+// its own current device across a launch.  Returns launch()'s cudaError_t,
+// or the error of getting or setting the device.
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int rc = launch();
+  if (prev != device && (err = cudaSetDevice(prev)) != cudaSuccess && rc == 0)
+    return static_cast<int>(err);
+  return rc;
+}
+
 }  // namespace
 
 // Launches K4 on `stream` (a cudaStream_t) of `device` over `batch` >= 1
@@ -131,15 +148,15 @@ extern "C" int synthetic_batch_launch(
     const float* lag_u, const float* flap_u, const long long* phase,
     const float* pad_u, const long long* pad_len, const float* trend,
     float* windows, float* labels, int batch, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks =
       static_cast<unsigned>((static_cast<long long>(batch) + kRows - 1) / kRows);
-  synthetic_batch_kernel<<<blocks, kRows, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      label_u, noise, latency_u, lag_u, flap_u, phase, pad_u, pad_len, trend,
-      windows, labels, batch);
-  return static_cast<int>(cudaGetLastError());
+  return on_device(device, [&] {
+    synthetic_batch_kernel<<<blocks, kRows, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        label_u, noise, latency_u, lag_u, flap_u, phase, pad_u, pad_len,
+        trend, windows, labels, batch);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" const char* synthetic_batch_error_string(int code) {

@@ -14,6 +14,11 @@ versions (natively batched ``(B, SIZE)`` int32 operations):
 * K7 ``kernels.mc_dedup.mc_dedup``: 32-bit row hash, one stable sort
   (valid rows first), full-row neighbour compare.
 
+With several devices (a list, or ``device=None`` on a machine with more
+than one card) each chunk is split over them (K8, ``_engine``): K5 and
+K6 run on each device's block of rows, the results are gathered on the
+first device in row order, and K7 runs once over the gathered batch.
+
 The encoding is bijective with the semantic-state quotient shared with
 the Python oracle (canon.py), so deduplicating on raw vector bytes is
 deduplicating on the canonical digest, and ``differential`` holds the two
@@ -32,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from manatee_tpu_torch.device import resolve
+from manatee_tpu_torch.device import resolve_all
 from manatee_tpu_torch.state import canon
 from manatee_tpu_torch.state.modelcheck import (
     CONFIGS,
@@ -611,13 +616,88 @@ def _boot(config: MCConfig, m: "Mutations"):
         _machine._sleep = patched
 
 
+def _gather(outs: list, dst: torch.device):
+    """Shard results concatenated on *dst* in shard order (the
+    reference's linear order, which the dedup's minimum-linear-index
+    survivor depends on); a single shard's result as it is."""
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat([o.to(dst) for o in outs])
+    return tuple(torch.cat([o[j].to(dst) for o in outs])
+                 for j in range(len(outs[0])))
+
+
+def shard_map(fn, P: int, chunk: int, devices):
+    """``fn(vs, knobs, P)`` (K5 or K6, or a plain version) over the
+    devices: the (chunk, SIZE) rows split into ``len(devices)``
+    contiguous equal blocks, block i run on ``devices[i]`` with
+    ``knobs[i]``, the results gathered on ``devices[0]``.  The port of
+    the reference's ``shard_map`` over its ``data`` axis: placement
+    only, no arithmetic of its own; torch orders the copies' streams."""
+    n = len(devices)
+    if chunk % n:
+        raise ValueError("chunk %d does not split over %d devices"
+                         % (chunk, n))
+
+    def run(vs: torch.Tensor, knobs) -> torch.Tensor | tuple:
+        if vs.shape[0] != chunk or len(knobs) != n:
+            raise ValueError("want %d rows and %d knob copies, not %d and %d"
+                             % (chunk, n, vs.shape[0], len(knobs)))
+        return _gather([fn(s.to(d), k, P) for s, d, k
+                        in zip(vs.chunk(n), devices, knobs)], devices[0])
+
+    return run
+
+
+def replicate_knobs(knobs: np.ndarray, devices) -> tuple:
+    """The (9,) int32 knobs once on each distinct device, one entry per
+    device of *devices*: the replicated operand of the engine's step and
+    liveness (a kernel takes its states and knobs on one card)."""
+    copies = {d: torch.from_numpy(knobs).to(d) for d in set(devices)}
+    return tuple(copies[d] for d in devices)
+
+
+_ENGINES: dict = {}
+
+
+def _engine(P: int, chunk: int, devices):
+    """(step, live, dedup) for a peer count, a chunk size and the
+    devices the chunk is split over (K8), cached per (P, chunk,
+    devices) as the reference's ``_engine`` (mc_array.py:1351-1393).
+
+    ``step(vs, knobs)`` -> children (chunk, S, SIZE), violation bits
+    (chunk, S), enabled (chunk, S) and ``live(vs, knobs)`` -> (chunk,)
+    liveness bits run K5 and K6 on each device's block of rows (their
+    plain versions on a CPU device) and gather on ``devices[0]``; *vs*
+    may lie anywhere, *knobs* is ``replicate_knobs``'s tuple.
+    ``dedup(flat, valid)`` is K7 over the gathered batch on
+    ``devices[0]``.  The kernels are looked up at each call, so a
+    wrapper patched around them sees every launch."""
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    devices = tuple(resolve_all(devices))
+    key = (P, chunk, devices)
+    eng = _ENGINES.get(key)
+    if eng is None:
+        eng = _ENGINES[key] = (
+            shard_map(lambda v, k, p: mc_step.step(v, k, p), P, chunk,
+                      devices),
+            shard_map(lambda v, k, p: mc_step.liveness(v, k, p), P, chunk,
+                      devices),
+            lambda flat, valid: mc_dedup.dedup(flat, valid))
+    return eng
+
+
 def explore_torch(config: MCConfig, depth: int | None = None,
                   max_nodes: int = 200_000, progress: bool = False,
                   mutations=None, collect=None, chunk: int = 256,
                   device=None) -> MCResult:
     """Level-synchronized BFS with the whole frontier expanded at once:
-    by K5, K6 and K7 on the card (``device=None``), by their plain
-    versions on ``device="cpu"``.
+    by K5, K6 and K7 on the cards (``device=None``: every visible card),
+    by their plain versions on ``device="cpu"``.  *device* may be a list
+    (see ``device.resolve_all``): each chunk is then split over those
+    devices (K8, ``_engine``) and the chunk rounded to a multiple of
+    their number, as the reference rounds it to its device count.
 
     Mirrors ``explore_jax`` (manatee_tpu/state/mc_array.py) line for
     line: the slot table enumerates actions in ``World.enabled()``
@@ -631,15 +711,16 @@ def explore_torch(config: MCConfig, depth: int | None = None,
 
     *collect*, when given, is called as ``collect(digest, trace,
     categories)`` per discovered state."""
-    from manatee_tpu_torch.kernels import mc_dedup, mc_step
-    dev = resolve(device)
+    devices = resolve_all(device)
+    dev = devices[0]
     depth = config.depth if depth is None else depth
     m = mutations or Mutations()
     P = len(config.peers)
     L = Layout(P)
     table = slot_table(P)
     S = len(table)
-    chunk = max(1, chunk)
+    chunk = max(1, chunk // len(devices)) * len(devices)
+    step, live, dedup = _engine(P, chunk, devices)
     res = MCResult(config=config.name, engine="torch")
     t0 = time.monotonic()
     last_report = t0
@@ -649,7 +730,7 @@ def explore_torch(config: MCConfig, depth: int | None = None,
     root_vec = np.asarray(encode_world(root_w, config), np.int32)
     boot_bad = canon.classify_all(root_w.violations
                                   + root_w.store.violations)
-    knobs = torch.from_numpy(make_knobs(config, m)).to(dev)
+    knobs = replicate_knobs(make_knobs(config, m), devices)
 
     vecs: list[np.ndarray] = [root_vec]
     index: dict[bytes, int] = {root_vec.tobytes(): 0}
@@ -663,8 +744,7 @@ def explore_torch(config: MCConfig, depth: int | None = None,
             if len(part) < chunk:
                 part = np.concatenate(
                     [part, np.repeat(part[:1], chunk - len(part), 0)])
-            out.append(mc_step.liveness(torch.from_numpy(part).to(dev),
-                                        knobs, P).cpu().numpy())
+            out.append(live(torch.from_numpy(part), knobs).cpu().numpy())
         return np.concatenate(out)[:len(arr)]
 
     def trace_of(i: int) -> list:
@@ -706,11 +786,11 @@ def explore_torch(config: MCConfig, depth: int | None = None,
             if n_real < chunk:
                 vs = np.concatenate(
                     [vs, np.repeat(vs[:1], chunk - n_real, 0)])
-            ch, vi, en = mc_step.step(torch.from_numpy(vs).to(dev), knobs, P)
+            ch, vi, en = step(torch.from_numpy(vs), knobs)
             flat = ch.view(chunk * S, L.SIZE)
             valid = torch.zeros(chunk * S, dtype=torch.bool, device=dev)
             valid[:n_real * S] = en[:n_real].reshape(-1)
-            keep, order = mc_dedup.dedup(flat, valid)
+            keep, order = dedup(flat, valid)
             kept = torch.sort(order[keep]).values
             rows = flat[kept].cpu().numpy()
             kept = kept.cpu().numpy()
@@ -881,19 +961,20 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk", type=int, default=1024)
     ap.add_argument("--max-nodes", type=int, default=500_000)
     ap.add_argument("--device", default=None,
-                    help="the CUDA card unless this says otherwise")
+                    help="one device (default: every visible CUDA card)")
     args = ap.parse_args(argv)
-    dev = resolve(args.device)
+    devices = resolve_all(args.device)
+    dev = devices[0]
     cfg = CONFIGS[args.config]
     explore_torch(cfg, depth=min(2, args.depth), chunk=args.chunk,
-                  device=dev)
+                  device=devices)
     res = explore_torch(cfg, depth=args.depth, chunk=args.chunk,
-                        max_nodes=args.max_nodes, device=dev)
+                        max_nodes=args.max_nodes, device=devices)
     out = {
         "engine": "torch", "config": args.config,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
-        "n_devices": 1,
+        "n_devices": len(devices),
         "depth": args.depth, "states": res.states,
         "nodes": res.nodes, "ok": res.ok, "complete": res.complete,
         "seconds": round(res.seconds, 3),
@@ -902,7 +983,7 @@ def main(argv=None) -> int:
     if args.deeper > 0:
         d2 = explore_torch(cfg, depth=args.depth + args.deeper,
                            chunk=args.chunk, max_nodes=args.max_nodes,
-                           device=dev)
+                           device=devices)
         out["deeper"] = {
             "depth": args.depth + args.deeper, "states": d2.states,
             "ok": d2.ok, "complete": d2.complete,

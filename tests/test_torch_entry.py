@@ -158,6 +158,10 @@ from manatee_tpu_torch.state import mc_array, modelcheck
 res = mc_array.explore_torch(modelcheck.CONFIGS["deaths3"], depth=2,
                              device="cpu")
 assert res.ok and res.complete and res.states > 1, res
+two = mc_array.explore_torch(modelcheck.CONFIGS["deaths3"], depth=2,
+                             device=["cpu"] * 2)
+assert (two.states, two.nodes, two.transitions) == (
+    res.states, res.nodes, res.transitions), two
 bad = [m for m in sys.modules if m.startswith("jax") or m == "manatee_tpu"
        or m.startswith("manatee_tpu.")]
 assert not bad, bad
