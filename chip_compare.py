@@ -1,0 +1,276 @@
+#!/usr/bin/env python3
+"""Hold K1 and K2a, and the paths that run them, to those of another
+tree (a parent commit unpacked with `git archive`) on one CUDA card.
+
+    python3 chip_compare.py PARENT_TREE
+
+Run from the repository root on a machine with an NVIDIA Hopper card and
+the CUDA toolkit.  Every measurement runs in a fresh process of one tree
+(`python3 chip_compare.py --side MODE` with that tree as the working
+directory): the process imports the tree's own manatee_tpu_torch, builds
+its kernels from its sources with its own flags and launches them through
+its own wrappers, so nothing here depends on a tree's launch signatures.
+Only this file and chip_smoke.py's helpers (the input kinds, device_ms)
+come from this tree.  In order:
+
+  1. bits: K1 and K2a of each tree on the same inputs, over the batches
+     below (with this tree's K1 crossover and a row either side), four
+     kinds of input, two sets of weights and, for K2a, three kinds of
+     labels (zeros x seed-0 weights is the z = 0 tie).  Every input and
+     every output is reduced to the sha256 of its bytes; the inputs must
+     agree and so must the outputs, bit for bit;
+  2. each kernel alone, a process a turn (parent, change, change,
+     parent, parent, change), CUDA events: K1 at the batches the paths
+     give it and at bulk, and K2a;
+  3. the paths in turns, a process a run: the wall of evaluate(n_traces=
+     60, seed=7) and of train(), and, in the first run of each tree, the
+     replay dicts of every recorded dir, the bytes of the weights
+     train(seed=0) exports and evaluate's reading of train seeds 0-4.
+     The readings of the two trees must be equal.
+
+Prints one JSON line per result and exits non-zero if anything differs.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from chip_smoke import COLD_BYTES, card_line, device_ms, input_kinds, require
+
+REPO = Path(__file__).resolve().parent
+K1_BATCHES = (1, 63, 64, 96, 374, 2048, 4458, 65537)   # + the crossover's
+K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
+K1_TIMED = (1, 64, 374, 2048, 65536)
+K2_TIMED = (256, 65536)
+EVALUATE_REPEATS = 5             # evaluate() runs a process, each timed
+TURNS = ("parent", "change", "change", "parent", "parent", "change")
+
+
+def sha(*tensors: torch.Tensor) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def weight_sets(dev) -> dict:
+    from manatee_tpu_torch.health.convert import load_npz
+    from manatee_tpu_torch.health.predictor import init_params
+    from manatee_tpu_torch.health.telemetry import DEFAULT_WEIGHTS
+
+    return {"seed0": init_params(
+                torch.Generator(device=dev).manual_seed(0)).tensors(),
+            "packaged": load_npz(DEFAULT_WEIGHTS).to(dev).tensors()}
+
+
+def side_bits(k1_batches) -> dict:
+    """{case: [input sha256, output sha256]} of this tree's K1 and K2a."""
+    from manatee_tpu_torch.kernels.mlp_forward import mlp_forward
+    from manatee_tpu_torch.kernels.mlp_train import mlp_train_partials
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    with torch.no_grad():
+        for wname, w in weight_sets(dev).items():
+            for batch in k1_batches:
+                for kind, x in input_kinds(batch, g, dev).items():
+                    out["K1 %s B=%d %s" % (wname, batch, kind)] = [
+                        sha(x, *w), sha(mlp_forward(x, *w))]
+            for batch in K2_BATCHES:
+                labels = {
+                    "random": (torch.rand(batch, generator=g, device=dev)
+                               > 0.5).float(),
+                    "zeros": torch.zeros(batch, device=dev),
+                    "ones": torch.ones(batch, device=dev)}
+                for kind, x in input_kinds(batch, g, dev).items():
+                    for lname, y in labels.items():
+                        out["K2a %s B=%d %s labels %s" % (
+                            wname, batch, kind, lname)] = [
+                            sha(x, y, *w),
+                            sha(mlp_train_partials(x, y, *w))]
+    return out
+
+
+def side_kernels() -> dict:
+    """{kernel: {batch: ms}}: each kernel alone, through its wrapper."""
+    from manatee_tpu_torch.kernels.mlp_forward import mlp_forward
+    from manatee_tpu_torch.kernels.mlp_train import mlp_train_partials
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    w = weight_sets(dev)["packaged"]
+    out = {"K1": {}, "K2a": {}}
+    with torch.no_grad():
+        for batch in K1_TIMED:
+            n = max(1, min(8, COLD_BYTES // (batch * 80 * 4)))
+            args = [(torch.rand(batch, 16, 5, generator=g, device=dev), *w)
+                    for _ in range(n)]
+            out["K1"][batch] = device_ms(mlp_forward, args)
+        for batch in K2_TIMED:
+            n = max(1, min(8, COLD_BYTES // (batch * 81 * 4)))
+            args = [(torch.rand(batch, 16, 5, generator=g, device=dev),
+                     (torch.rand(batch, generator=g, device=dev) > 0.5)
+                     .float(), *w) for _ in range(n)]
+            out["K2a"][batch] = device_ms(mlp_train_partials, args)
+    return out
+
+
+def side_paths(full: bool) -> dict:
+    """The paths' walls and, when *full*, their readings."""
+    from manatee_tpu_torch.health import train
+
+    dirs = {d.name: sorted(str(p) for p in d.glob("*.jsonl"))
+            for d in sorted(Path("tests/data").glob("recorded-*"))}
+    mix = [f for d in ("recorded-chaos-r4", "recorded-chaos-s2",
+                       "recorded-chaos-s3") for f in dirs[d]]
+    rec = train.recorded_windows(mix)
+    train.evaluate(n_traces=2, seed=7)          # warm: build, load, caches
+    train.train(steps=2, recorded=rec)
+    torch.cuda.synchronize()
+    out = {"evaluate_wall_s": []}
+    for _ in range(EVALUATE_REPEATS):
+        t0 = time.perf_counter()
+        out["evaluate"] = train.evaluate(n_traces=60, seed=7)
+        out["evaluate_wall_s"].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    train.train(recorded=rec)
+    torch.cuda.synchronize()
+    out["train_wall_s"] = time.perf_counter() - t0
+    if not full:
+        return out
+    out["replay"] = {d: train.evaluate_recorded(f) for d, f in dirs.items()}
+    out["quality"] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "w.npz"
+        for seed in range(5):
+            model, loss, _acc = train.train(seed=seed, recorded=rec)
+            train.export(model, path)
+            if seed == 0:
+                with np.load(path) as z:
+                    out["seed0_weights_sha256"] = hashlib.sha256(b"".join(
+                        z[k].tobytes() for k in sorted(z.files))).hexdigest()
+                out["seed0_loss"] = loss
+            out["quality"].append(train.evaluate(path, n_traces=60, seed=7))
+    return out
+
+
+def side(mode: str, arg: str) -> dict:
+    # the working directory is the tree under test: its package first
+    sys.path.insert(0, os.getcwd())
+    from manatee_tpu_torch.kernels import nvcc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nvcc.build(*nvcc.KERNELS)
+    if mode == "bits":
+        return side_bits(json.loads(arg))
+    if mode == "kernels":
+        return side_kernels()
+    return side_paths(full=mode == "paths-full")
+
+
+def run_side(tree: Path, mode: str, arg: str = "") -> dict:
+    res = subprocess.run(
+        [sys.executable, str(REPO / "chip_compare.py"), "--side", mode, arg],
+        cwd=tree, capture_output=True, text=True, timeout=900)
+    require(res.returncode == 0, "%s in %s: %s" % (mode, tree,
+                                                  res.stderr[-3000:]))
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def bit_identity(parent: Path) -> dict:
+    from manatee_tpu_torch.kernels.mlp_forward import CROSSOVER
+
+    k1_batches = sorted({*K1_BATCHES, CROSSOVER - 1, CROSSOVER,
+                         CROSSOVER + 1})
+    arg = json.dumps(k1_batches)
+    want, got = run_side(parent, "bits", arg), run_side(REPO, "bits", arg)
+    require(want.keys() == got.keys(), "the trees ran different cases")
+    for case, (x, y) in got.items():
+        require(x == want[case][0], "inputs differ: %s" % case)
+        require(y == want[case][1], "output differs from the parent's: %s"
+                % case)
+    return {"K1_launches_equal": sum(c.startswith("K1") for c in got),
+            "K2a_launches_equal": sum(c.startswith("K2a") for c in got),
+            "K1_batches": k1_batches, "K2a_batches": K2_BATCHES}
+
+
+def kernel_turns(parent: Path) -> dict:
+    """Each kernel alone in turns; the median of the turns' medians."""
+    runs: dict = {}
+    for side_name in TURNS:
+        tree = parent if side_name == "parent" else REPO
+        for kernel, by_batch in run_side(tree, "kernels").items():
+            for batch, ms in by_batch.items():
+                runs.setdefault(kernel, {}).setdefault(batch, {}).setdefault(
+                    side_name, []).append(ms)
+    return {kernel: {batch: {s: {"median_ms": statistics.median(ms),
+                                 "runs_ms": ms} for s, ms in sides.items()}
+                     for batch, sides in by_batch.items()}
+            for kernel, by_batch in runs.items()}
+
+
+def path_turns(parent: Path) -> dict:
+    """The paths in turns, a fresh process a run, each in its tree."""
+    runs = {"parent": [], "change": []}
+    for side_name in TURNS:
+        tree = parent if side_name == "parent" else REPO
+        mode = "paths-walls" if runs[side_name] else "paths-full"
+        runs[side_name].append(run_side(tree, mode))
+    first = {s: r[0] for s, r in runs.items()}
+    for key in ("replay", "seed0_weights_sha256", "seed0_loss", "quality"):
+        require(first["parent"][key] == first["change"][key],
+                "%s differs: parent %s, change %s" % (
+                    key, first["parent"][key], first["change"][key]))
+    for side_name in runs:
+        require(all(r["evaluate"] == first[side_name]["evaluate"]
+                    for r in runs[side_name]), "evaluate moved between runs")
+    return {
+        "order": TURNS,
+        "evaluate_wall_s": {s: [r["evaluate_wall_s"] for r in v]
+                            for s, v in runs.items()},
+        "evaluate_wall_median_s": {
+            s: statistics.median(t for r in v for t in r["evaluate_wall_s"])
+            for s, v in runs.items()},
+        "train_wall_s": {s: [r["train_wall_s"] for r in v]
+                         for s, v in runs.items()},
+        "evaluate": first["change"]["evaluate"],
+        "replay_equal": True,
+        "seed0_weights_sha256": first["change"]["seed0_weights_sha256"],
+        "quality_detection": [q["detection_rate"]
+                              for q in first["change"]["quality"]],
+        "quality_equal": True}
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--side":
+        print(json.dumps(side(sys.argv[2], sys.argv[3])))
+        return 0
+    if not torch.cuda.is_available():
+        print("chip_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    if len(sys.argv) != 2 or not Path(sys.argv[1]).is_dir():
+        print(__doc__, file=sys.stderr)
+        return 2
+    parent = Path(sys.argv[1]).resolve()
+    print(card_line())
+    print(json.dumps({"bit_identity": bit_identity(parent)}))
+    print(json.dumps({"kernel_turns": kernel_turns(parent)}))
+    print(json.dumps({"path_turns": path_turns(parent)}))
+    print(json.dumps({"ok": True}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

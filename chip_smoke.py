@@ -11,19 +11,23 @@ phase catches its own failure:
   b. build every kernel from the sources (nvcc, sm_90a, one process per
      source, all started together);
   c. K1 against its plain PyTorch version on the card, TF32 off, over
-     the batch sizes below and every batch the serving path gives it, on
-     four kinds of input and two sets of weights;
+     the batch sizes below, the crossover between its two launch shapes
+     and a row either side, and every batch the serving path gives it,
+     on four kinds of input and two sets of weights; every launch shape
+     gives the same bits;
   d. K4 against its plain version: equal bit for bit, three seeds;
   e. K2 (K2a + K2b, one training step) against its plain version, TF32
      off, on four kinds of input, three kinds of labels and two sets of
-     weights (zeros x seed-0 weights is the z = 0 tie); a second launch
-     gives the same bits;
+     weights (zeros x seed-0 weights is the z = 0 tie), at batches with
+     partial tiles and several entry slices; a second launch gives the
+     same bits;
   f. the serving path, launch counts set to 0 just before it: entry()
      on the card, then the recorded-trace replay (evaluate_recorded) of
      every tests/data/recorded-* directory;
   g. check the serving path: entry's scores against the plain version,
      each replay dict against the same replay on the CPU, and that every
-     kernel of the path was launched;
+     kernel of the path was launched, K1 in the launch shape its plan
+     gives each batch;
   h. the training path, launch counts set to 0 just before it:
      health.train.main at the `make train-health` configuration (300
      steps of 256, recorded mix r4/s2/s3) on the card, then evaluate()
@@ -31,7 +35,9 @@ phase catches its own failure:
      a second train() exports the same bytes, that the plain version on
      the CPU, fed the card's batches, ends within TOL of the card, and
      the quality bar over five seeds (each also trained on the CPU, for
-     comparison); then dryrun_multichip(1) on NCCL;
+     comparison); K1 launched in the shape its plan gives each of the
+     path's batches (evaluate's 1, train()'s held-out 2,048); then
+     dryrun_multichip(1) on NCCL;
   i. whole-slice parity: 100 train steps on the card from the packaged
      weights against the same steps of the plain version on the CPU;
   j. K3: one mesh step of dryrun_multichip(1)'s rank on NCCL at B = 16,
@@ -62,12 +68,18 @@ phase catches its own failure:
   q. (run after p) train()'s rank path as NCCL world 1 at the `make
      train-health` configuration against train() on the card, within
      TOL; train() over every card when more than one is visible;
-  m. timing: the replay's, the training loop's and the checker's depth-7
-     run's device busy and idle share (torch.profiler), then each kernel,
-     its plain version and a library yardstick where one exists, timed
-     with CUDA events (K5-K7 at chunk 1024 and at 65,536 rows of real
-     frontier states, with the sort's time apart; K8 over 1, 2 and 4
-     shards at both sizes, with the gather's time apart);
+  m. timing: the replay's, the training loop's, evaluate(60, seed 7)'s
+     and the checker's depth-7 run's device busy and idle share
+     (torch.profiler; given only where the profiler saw an event for
+     every launch of the run) beside their unprofiled walls; the launch
+     floor (a
+     one-element fill_); then each kernel, its plain version and a
+     library yardstick where one exists, timed with CUDA events (K1 at
+     B = 1, 64, the largest trace, 2,048, 4,096, 8,192, 16,384 and
+     65,536 in both launch shapes; K2a's bound counts its double sums at the fp64 rate; K5-K7
+     at chunk 1024 and at 65,536 rows of real frontier states, with the
+     sort's time apart; K8 over 1, 2 and 4 shards at both sizes, with
+     the gather's time apart);
   n. one JSON line describing every kernel, K1-K8;
   o. last line: {"ok": true, "device": {...}}.
 
@@ -98,22 +110,29 @@ TOL = 1e-5                       # kernel vs plain, fp32 sums in another order
 # (dryrun_multichip's one rank), 256 (a training step)
 CHECK_BATCHES = (1, 63, 64, 96, 2048, 4458, 65537)
 K4_BATCHES = (1, 7, 16, 64, 249, 256, 2048, 65537)
-K2_BATCHES = (1, 7, 16, 249, 256, 4096, 65537)
+# K2a at 65 and 128: partial tiles, several entry slices a tile
+K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
 QUALITY_SEEDS = (0, 1, 2, 3, 4)  # train() seeds read against the bar
 TRAIN_BATCH = 256                # the training path's batch (249 + 7 rows)
 BULK_BATCH = 65536               # the batch the kernels line reports
+# K1's timed batches (+ the largest trace's): the paths' and, around the
+# crossover, those that chose it
+K1_TIMED = (1, 64, 2048, 4096, 8192, 16384, BULK_BATCH)
 COLD_BYTES = 128 << 20           # input buffers cycled when timing: > L2
-# published peaks: device-memory bytes/s, fp32 non-tensor FLOP/s
-PEAKS = {"PCIe": (2.0e12, 51.2e12), "NVL": (3.9e12, 60.0e12),
-         "SXM": (3.35e12, 67.0e12)}
+# published peaks (NVIDIA's H100 data sheet): device-memory bytes/s, fp32
+# and fp64 non-tensor FLOP/s
+PEAKS = {"PCIe": (2.0e12, 51.2e12, 26.0e12), "NVL": (3.9e12, 60.0e12, 30.0e12),
+         "SXM": (3.35e12, 67.0e12, 34.0e12)}
 MIX = ("recorded-chaos-r4", "recorded-chaos-s2", "recorded-chaos-s3")
 HELD_OUT = ("recorded-chaos-s4", "recorded-chaos-s5")
 
-# fp32 operations per row, counted from the algorithm
+# operations per row, counted from the algorithm
 K1_FLOP = 2 * (80 * 32 + 32 * 32 + 32)
-# K2a: the forward, the weight gradients (one FMA per weight per row),
-# the layer-1 delta (d2 W2^T), d2, the bias sums, dz and the loss term
-K2A_FLOP = K1_FLOP + K1_FLOP + 2 * 32 * 32 + 32 + (32 + 32 + 1) + 12
+# K2a in fp32: the forward, the layer-1 delta (d2 W2^T), d2, dz and the
+# loss term; in fp64: the weight gradients (one FMA per weight per row)
+# and the bias and loss sums
+K2A_FLOP = K1_FLOP + 2 * 32 * 32 + 32 + 12
+K2A_FLOP64 = K1_FLOP + (32 + 32 + 1) + 1
 # K4: per tick ~23 (the ramps, coins, clamps, cadence), per row 5
 K4_FLOP = 16 * 23 + 5
 
@@ -131,7 +150,7 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def peaks(name: str) -> tuple[float, float]:
+def peaks(name: str) -> tuple[float, float, float]:
     for part, rates in PEAKS.items():
         if part in name:
             return rates
@@ -167,40 +186,64 @@ def device_ms(fn, arg_sets, reps: int = 25, inner: int = 20) -> float:
     return statistics.median(samples)
 
 
-def bound(moved: int, ops: int, bw: float, flops: float) -> dict:
-    bytes_ms, ops_ms = 1e3 * moved / bw, 1e3 * ops / flops
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": moved, "flop": ops}
+def bound(moved: int, ops: int, bw: float, flops: float,
+          ops64: int = 0, flops64: float = 1.0) -> dict:
+    """The least time of the work: the larger of its bytes at the memory
+    rate and its fp32 and fp64 operations, each at its own peak."""
+    bytes_ms = 1e3 * moved / bw
+    ops_ms = max(1e3 * ops / flops, 1e3 * ops64 / flops64)
+    out = {"bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": moved, "flop": ops}
+    if ops64:
+        out["flop64"] = ops64
+    return out
 
 
-KERNEL_NAMES = {"K1": "mlp_forward", "K2a": "mlp_train_partials",
-                "K2b": "mlp_sgd_apply", "K4": "synthetic_batch",
-                "K5": "mc_step", "K6": "mc_liveness", "K7_hash": "mc_hash",
-                "K7_keep": "mc_keep"}
+# the device names of each kernel's CUDA functions, as the profiler shows them
+KERNEL_NAMES = {"K1": ("mlp_forward_rows", "mlp_forward_tiles"),
+                "K2a": ("mlp_train_partials_kernel",),
+                "K2b": ("mlp_sgd_apply_kernel",),
+                "K4": ("synthetic_batch_kernel",),
+                "K5": ("mc_step_kernel",), "K6": ("mc_liveness_kernel",),
+                "K7_hash": ("mc_hash_kernel",), "K7_keep": ("mc_keep_kernel",)}
 
 
 def profile_run(run) -> dict:
     """Wall time of run() and the device time the profiler saw in it:
-    the device's busy and idle share, and each kernel's device time."""
+    the device's busy and idle share, and each kernel's device time.
+    The profiler can miss a kernel's event (on an H100, one of the 26 K6
+    launches of the checker's run in this script, not in a fresh
+    process), so busy and idle are given only when it saw one event for
+    each launch the wrappers counted in the run (launch counts set to 0
+    first), else None."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    reset_counts()
+    mc_reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    counts = {**read_counts(), **mc_read_counts()}
     on_device = [e for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = {k: sum(e.count for e in on_device
+                     if any(n in e.key for n in names))
+              for k, names in KERNEL_NAMES.items()}
+    launches = {k: counts[k] for k in KERNEL_NAMES}
+    complete = bool(on_device) and events == launches
     busy_ms = 1e-3 * sum(e.self_device_time_total for e in on_device)
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy_ms if on_device else None,
-            "idle_share": 1 - busy_ms / wall_ms if on_device else None,
+    return {"wall_ms": wall_ms, "events_complete": complete,
+            "kernel_events": events, "launches": launches,
+            "device_busy_ms": busy_ms if complete else None,
+            "idle_share": 1 - busy_ms / wall_ms if complete else None,
             "kernel_device_ms": {
                 k: 1e-3 * sum(e.self_device_time_total for e in on_device
-                              if name + "_kernel" in e.key)
-                for k, name in KERNEL_NAMES.items()},
+                              if any(n in e.key for n in names))
+                for k, names in KERNEL_NAMES.items()},
             "device_ops": {e.key[:60]: e.count for e in on_device}}
 
 
@@ -319,6 +362,7 @@ def reset_counts() -> None:
     from manatee_tpu_torch.kernels import synthetic_batch as k4
 
     k1.mlp_forward.launches = 0
+    k1.mlp_forward.shape_launches = dict.fromkeys(k1.SHAPES, 0)
     k2.mlp_train_partials.launches = 0
     k2.mlp_sgd_apply.launches = 0
     k4.synthetic_windows.launches = 0
@@ -330,6 +374,7 @@ def read_counts() -> dict:
     from manatee_tpu_torch.kernels import synthetic_batch as k4
 
     return {"K1": k1.mlp_forward.launches,
+            "K1_by_shape": dict(k1.mlp_forward.shape_launches),
             "K2a": k2.mlp_train_partials.launches,
             "K2b": k2.mlp_sgd_apply.launches,
             "K4": k4.synthetic_windows.launches}
@@ -358,6 +403,7 @@ def training_path(dirs, dev) -> dict:
     from manatee_tpu_torch.graft_entry import dryrun_multichip
     from manatee_tpu_torch.health import train
     from manatee_tpu_torch.health.predictor import init_params, train_step
+    from manatee_tpu_torch.kernels import mlp_forward as k1
 
     mix = [f for d in MIX for f in dirs[d]]
     held_out = [f for d in HELD_OUT for f in dirs[d]]
@@ -376,8 +422,12 @@ def training_path(dirs, dev) -> dict:
         print("train path: evaluate(60, seed 7) %s" % json.dumps(ev))
         print("train path: held-out s4+s5 %s" % json.dumps(ev_held))
         steps = 300
+        # K1: evaluate's one window a tick, and train()'s held-out 2,048
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        shapes = {k1.launch_plan(n, sms)[0] for n in (1, 2048)}
         require(counts["K2a"] == steps and counts["K2b"] == steps
-                and counts["K4"] == steps + 1 and counts["K1"] > 0,
+                and counts["K4"] == steps + 1 and counts["K1"] > 0
+                and all(counts["K1_by_shape"][s] > 0 for s in shapes),
                 "training path launches %s" % counts)
 
         # determinism: the same seed exports the same bytes
@@ -1173,7 +1223,7 @@ def k3_rank(rank: int, world: int, device, batch: int) -> dict:
     return out
 
 
-def k3_timing(dev, bw: float, flops: float) -> dict:
+def k3_timing(dev, bw: float, flops: float, flops64: float) -> dict:
     """j. One mesh step in dryrun_multichip(1)'s rank on NCCL, B = 16,
     and its bound: K2's at B = 16 plus a 3,682-float all-reduce."""
     from manatee_tpu_torch.distributed import run_ranks
@@ -1183,7 +1233,8 @@ def k3_timing(dev, bw: float, flops: float) -> dict:
     (rank0,) = run_ranks(k3_rank, 1, dev, batch)
     n_blocks = -(-batch // k2.ROWS_PER_BLOCK)
     k2a = bound(batch * 81 * 4 + k2.N_PARAMS * 4
-                + n_blocks * k2.GRAD_SIZE * 4, batch * K2A_FLOP, bw, flops)
+                + n_blocks * k2.GRAD_SIZE * 4, batch * K2A_FLOP, bw, flops,
+                batch * K2A_FLOP64, flops64)
     k2b = bound((n_blocks + 1) * k2.GRAD_SIZE * 4 + 2 * k2.N_PARAMS * 4,
                 n_blocks * k2.GRAD_SIZE + k2.GRAD_SIZE + 2 * k2.N_PARAMS,
                 bw, flops)
@@ -1212,6 +1263,7 @@ def main() -> int:
     )
     from manatee_tpu_torch.health.train import (
         _load_ticks,
+        evaluate,
         evaluate_recorded,
         ready_windows,
         recorded_windows,
@@ -1226,7 +1278,7 @@ def main() -> int:
     card = card_line()
     print(card)
     name = torch.cuda.get_device_name(0)
-    bw, flops = peaks(name)
+    bw, flops, flops64 = peaks(name)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1246,7 +1298,9 @@ def main() -> int:
     require(len(dirs) >= 6, "recorded dirs missing: %s" % sorted(dirs))
     traces = [_load_ticks(f) for files in dirs.values() for f in files]
     n_windows = [len(ready_windows(t)[1]) for t in traces]
-    batches = sorted(set(CHECK_BATCHES) | {n for n in n_windows if n})
+    crossover = (k1.CROSSOVER - 1, k1.CROSSOVER, k1.CROSSOVER + 1)
+    batches = sorted(set(CHECK_BATCHES) | set(crossover)
+                     | {n for n in n_windows if n})
     weight_sets = {
         "seed0": init_params(torch.Generator(device=dev).manual_seed(0)),
         "packaged": load_npz(DEFAULT_WEIGHTS).to(dev),
@@ -1260,8 +1314,12 @@ def main() -> int:
                 with torch.no_grad():
                     got = k1.mlp_forward(x, *w)
                     want = k1.mlp_forward_plain(x, *w)
+                    shapes = [k1._launch(x, w, s) for s in k1.SHAPES]
                 torch.cuda.synchronize()
                 require(got.shape == (batch,), "K1 shape %s" % (got.shape,))
+                require(all(torch.equal(got, o) for o in shapes),
+                        "K1's launch shapes differ (%s, B=%d, %s)"
+                        % (wname, batch, kind))
                 require(bool(torch.isfinite(got).all())
                         and bool(((got >= 0) & (got <= 1)).all()),
                         "K1 output not finite in [0,1] (%s, B=%d, %s)"
@@ -1270,8 +1328,9 @@ def main() -> int:
                 require(err <= TOL, "K1 vs plain |d|=%g > %g (%s, B=%d, %s)"
                         % (err, TOL, wname, batch, kind))
                 max_err = max(max_err, err)
-    print("K1 vs plain: max |d| %.3g over B=%s (tolerance %g)"
-          % (max_err, batches, TOL))
+    print("K1 vs plain: max |d| %.3g over B=%s (tolerance %g); every launch "
+          "shape %s gives the same bits; crossover %d"
+          % (max_err, batches, TOL, k1.SHAPES, k1.CROSSOVER))
 
     # d. K4 vs plain; e. K2 vs plain
     check_k4(dev)
@@ -1298,9 +1357,15 @@ def main() -> int:
             windows, *params.tensors())).abs().max())
     require(entry_err <= TOL, "entry vs plain |d|=%g" % entry_err)
     expected = 1 + sum(1 for n in n_windows if n)
-    require(launches == expected and serving["K4"] == 1,
-            "launches on the serving path: %s, expected K1 %d and K4 1"
-            % (serving, expected))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_shape = dict.fromkeys(k1.SHAPES, 0)
+    for n in [64, *n_windows]:
+        if n:
+            by_shape[k1.launch_plan(n, sms)[0]] += 1
+    require(launches == expected and serving["K4"] == 1
+            and serving["K1_by_shape"] == by_shape,
+            "launches on the serving path: %s, expected K1 %d (by launch "
+            "shape %s) and K4 1" % (serving, expected, by_shape))
     t0 = time.perf_counter()
     on_cpu = {d: evaluate_recorded(files, device="cpu")
               for d, files in dirs.items()}
@@ -1325,7 +1390,7 @@ def main() -> int:
     parity_err = slice_parity(dev)
 
     # j. K3: one mesh step in dryrun_multichip(1)'s rank, timed
-    k3 = k3_timing(dev, bw, flops)
+    k3 = k3_timing(dev, bw, flops, flops64)
 
     # k. K5, K6, K7 against their plain versions on the edge batches;
     # l. the model checker's main path, counts from 0, and its checks
@@ -1351,10 +1416,24 @@ def main() -> int:
     train_wall_s = time.perf_counter() - t0
     print(json.dumps({"train_profile": profile_run(
         lambda: train(recorded=rec)), "train_wall_s": train_wall_s}))
+    # evaluate(60, seed 7) on the packaged weights: 2,700 scored ticks,
+    # each one window through K1 and back to the host
+    t0 = time.perf_counter()
+    evaluate(n_traces=60, seed=7)
+    torch.cuda.synchronize()
+    evaluate_wall_s = time.perf_counter() - t0
+    print(json.dumps({"evaluate_profile": profile_run(
+        lambda: evaluate(n_traces=60, seed=7)),
+        "evaluate_wall_s": evaluate_wall_s}))
 
+    # the launch floor: a one-element fill_, queued as the kernels are
+    flag = torch.empty(1, device=dev)
+    floor_ms = device_ms(lambda t: t.fill_(1.0), [(flag,)])
+    print(json.dumps({"launch_floor_ms": floor_ms}))
     w = params.tensors()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     timing = {"K1": {}, "K2a": {}, "K2b": {}, "K4": {}}
-    for batch in (64, max(n_windows), BULK_BATCH):
+    for batch in sorted({*K1_TIMED, max(n_windows)}):
         n_bufs = max(1, min(8, COLD_BYTES // (batch * 80 * 4)))
         arg_sets = [(torch.rand(batch, 16, 5, generator=g, device=dev), *w)
                     for _ in range(n_bufs)]
@@ -1363,6 +1442,11 @@ def main() -> int:
                 "ms": device_ms(k1.mlp_forward, arg_sets),
                 "plain_ms": device_ms(k1.mlp_forward_plain, arg_sets),
                 "library_ms": device_ms(library_forward, arg_sets),
+                "launch_floor_ms": floor_ms,
+                "shape": k1.launch_plan(batch, sms),
+                "by_shape_ms": {
+                    str(s): device_ms(lambda *a, s=s: k1._launch(
+                        a[0], a[1:], s), arg_sets) for s in k1.SHAPES},
                 **bound(batch * (80 + 1) * 4 + k2.N_PARAMS * 4,
                         batch * K1_FLOP, bw, flops)}
     for batch in (TRAIN_BATCH, BULK_BATCH):
@@ -1374,10 +1458,11 @@ def main() -> int:
         timing["K2a"][batch] = {
             "ms": device_ms(k2.mlp_train_partials, arg_sets),
             "plain_ms": device_ms(k2.grad_sums_plain, arg_sets),
-            "library_ms": None,
+            "library_ms": None, "launch_floor_ms": floor_ms,
             **bound(batch * 81 * 4 + k2.N_PARAMS * 4
                     + n_blocks * k2.GRAD_SIZE * 4,
-                    batch * K2A_FLOP, bw, flops)}
+                    batch * K2A_FLOP, bw, flops, batch * K2A_FLOP64,
+                    flops64)}
         partial_sets = [(k2.mlp_train_partials(*a), 1.0 / batch, w, 0.05)
                         for a in arg_sets]
         timing["K2b"][batch] = {
@@ -1454,6 +1539,12 @@ def main() -> int:
     kernels[0]["serving_launches"] = launches
     kernels[0]["training_launches"] = trained["launches"]["K1"]
     kernels[0]["launches"] = launches + trained["launches"]["K1"]
+    kernels[0]["launches_by_shape"] = {
+        str(s): serving["K1_by_shape"][s]
+        + trained["launches"]["K1_by_shape"][s] for s in k1.SHAPES}
+    kernels[0]["crossover"] = k1.CROSSOVER
+    for row in kernels[:2]:
+        row["launch_floor_ms"] = floor_ms
     kernels[1]["slice_parity_100_steps"] = parity_err
     # K7 is two kernels around the sort, each counted at its launch and
     # required above to equal the recorded dedup calls

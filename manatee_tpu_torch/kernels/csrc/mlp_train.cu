@@ -20,24 +20,42 @@
 // pass no gradient at 0 (jax.nn.relu's rule).
 //
 // Bound on an H100 SXM: a row reads 81 floats (324 bytes) and costs
-// ~16,600 fp32 operations (the forward's 7,232, the weight gradients'
-// 7,232, the hidden delta's 2,048, the biases' and the loss's ~100);
-// each block of 64 rows writes 3,682 floats (230 bytes a row).  About
-// 30 operations a byte against the card's 20: bound by operations.
+// ~9,300 fp32 operations (the forward's 7,232, the hidden delta's 2,048,
+// d2, dz and the loss term) and ~7,300 fp64 ones (the weight gradients'
+// 3,616 FMAs and the bias and loss sums); each block of 64 rows writes
+// 3,682 floats (230 bytes a row).  At 34 TFLOP/s of fp64 the sums bound
+// it: operations, not bytes.
 //
-// Design (right and simple first):
-// * K2a: 128 threads a block, 64 rows.  All weights (3,681 floats) and
-//   the tile's inputs are staged in shared memory.  Phase 1: one thread
-//   per row runs the forward pass in registers as K1 does, then the
-//   row's own backward (dz, the layer-2 delta d2 = dz w3 relu'(h2), the
-//   layer-1 delta d1 = (d2 W2^T) relu'(h1)), and leaves x, h1, h2, d1,
-//   d2, dz and the loss term in shared memory.  Phase 2: each thread
-//   owns output entries and sums the tile's rows for each in row order
-//   (x_m d1_k for w1, h1_k d2_j for w2, h2_j dz for w3, the deltas for
-//   the biases).  Every region of the flat layout starts at a multiple
-//   of 32 entries, so a warp never straddles two; within a warp one
-//   operand is a broadcast and the other 32 consecutive words.
-//   Row tiles use an odd pitch so a warp's per-row accesses hit 32 banks.
+// Every output is one fixed chain of operations: each activation and
+// delta an fmaf chain in index order (h1, h2 over k; z over j; d1[k] over
+// j), each gradient entry a double fma chain over the tile's rows in row
+// order, rounded once to float.  The design fixes which thread runs
+// which chain and where its operands live, never the chain itself.
+//
+// Design:
+// * K2a: a block is one 64-row tile (kRows) and one slice of the 3,682
+//   entries; the grid is tiles x slices (blockIdx.y), so a small batch
+//   still spreads over the card (B = 256: 4 tiles x 15 slices).  Each
+//   block stages all weights and its tile's inputs in shared memory, by
+//   cp.async, so every thread's loads are in flight at once.
+//   Phase 1, a warp per row: each of the 8 warps runs 8 rows at once, lane
+//   j owning hidden unit j (h1[j], h2[j], d2[j]) and, for the hidden
+//   delta, lane k owning d1[k]; the inputs and h1, h2, d2 reach every
+//   lane as float4 broadcasts from shared memory, W2 is staged with an
+//   odd pitch so that both its columns (forward) and rows (d1) read
+//   conflict-free, and lane i < 8 runs row i's z, loss and dz.  Phase 1
+//   leaves x, h1, h2, d1, d2, dz and the loss term in shared memory.
+//   Phase 2: each thread owns entries of the block's slice and sums the
+//   tile's rows for each in row order (x_m d1_k for w1, h1_k d2_j for
+//   w2, h2_j dz for w3, the deltas for the biases).  Slices are whole
+//   multiples of 256 entries and every region of the flat layout starts
+//   at a multiple of 32, so a warp never straddles two; within a warp
+//   one operand is a broadcast and the other 32 consecutive words.
+//   Every slice's block recomputes its tile's phase 1, which keeps K2a
+//   one launch with its arguments as they were (a second kernel would
+//   add a launch and device-memory scratch for the activations).  Slices
+//   shrink as tiles grow, so at bulk a tile has one block and nothing is
+//   recomputed.
 // * Sums run in double (phase 2 and K2b): with float32 sums in a fixed
 //   order, 65,537 like rows drifted 1.2e-5 from the plain version's
 //   pairwise sums (measured on an H100), past the 1e-5 tolerance.
@@ -53,10 +71,13 @@ namespace {
 
 constexpr int kIn = 16 * 5;
 constexpr int kHidden = 32;
-constexpr int kRows = 64;            // rows per K2a block
-constexpr int kThreads = 128;        // threads per K2a block
-constexpr int kPX = kIn + 1;         // odd pitches: conflict-free row access
-constexpr int kPH = kHidden + 1;
+constexpr int kRows = 64;            // rows per K2a tile
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;  // threads per K2a block
+constexpr int kWarpRows = kRows / kWarps;  // rows each warp runs at once
+constexpr int kPW2 = kHidden + 1;    // odd pitch of the staged W2
+constexpr int kPH = kHidden + 4;     // 16-byte rows; 8 rows hit 8 bank quads
+constexpr unsigned kAll = 0xffffffffu;
 
 // flat layout of the weights, and of the gradient; the loss sum follows
 constexpr int kW1 = 0;
@@ -67,22 +88,52 @@ constexpr int kW3 = kB2 + kHidden;
 constexpr int kB3 = kW3 + kHidden;
 constexpr int kParams = kB3 + 1;     // 3,681
 constexpr int kOut = kParams + 1;    // 3,682 entries a block
-static_assert(kW2 % 4 == 0, "W2 must stay float4-aligned in shared memory");
+constexpr int kSlice = kThreads;     // entries a slice takes per pass
+constexpr int kMaxSlices = (kOut + kSlice - 1) / kSlice;   // 15
+// tiles x slices aimed at: two blocks on each of an H100's 132 SMs
+constexpr int kTargetBlocks = 264;
 static_assert(kB1 % 32 == 0 && kW2 % 32 == 0 && kB2 % 32 == 0 &&
-              kW3 % 32 == 0 && kB3 % 32 == 0,
+              kW3 % 32 == 0 && kB3 % 32 == 0 && kSlice % 32 == 0,
               "regions of the flat layout start on a warp boundary");
+static_assert(kWarpRows == 8, "lane i < 8 runs row i's z");
 
 // shared memory of K2a, in floats
-constexpr int kSW = 0;
-constexpr int kSX = (kParams + 3) / 4 * 4;
-constexpr int kSH1 = kSX + kRows * kPX;
+constexpr int kSW1 = 0;
+constexpr int kSW2 = kSW1 + kIn * kHidden;
+constexpr int kSB1 = kSW2 + kHidden * kPW2;
+constexpr int kSB2 = kSB1 + kHidden;
+constexpr int kSW3 = kSB2 + kHidden;
+constexpr int kSB3 = kSW3 + kHidden;
+constexpr int kSX = (kSB3 + 1 + 3) / 4 * 4;
+constexpr int kSH1 = kSX + kRows * kIn;
 constexpr int kSH2 = kSH1 + kRows * kPH;
 constexpr int kSD1 = kSH2 + kRows * kPH;
 constexpr int kSD2 = kSD1 + kRows * kPH;
 constexpr int kSDZ = kSD2 + kRows * kPH;
 constexpr int kSLoss = kSDZ + kRows;
 constexpr int kSmemFloats = kSLoss + kRows;
-constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);   // 69,776
+constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);   // 72,720
+static_assert(kSW3 % 4 == 0 && kSX % 4 == 0 && kSH1 % 4 == 0 &&
+              kSH2 % 4 == 0 && kSD2 % 4 == 0 && kPH % 4 == 0,
+              "float4 broadcasts read 16-byte aligned rows");
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(addr), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
 
 __global__ void __launch_bounds__(kThreads)
 mlp_train_partials_kernel(const float* __restrict__ x,
@@ -95,7 +146,11 @@ mlp_train_partials_kernel(const float* __restrict__ x,
                           const float* __restrict__ b3,
                           float* __restrict__ partials, int batch) {
   extern __shared__ __align__(16) float smem[];
-  float* sw = smem + kSW;
+  float* sw1 = smem + kSW1;
+  float* sw2 = smem + kSW2;
+  float* sb1 = smem + kSB1;
+  float* sb2 = smem + kSB2;
+  float* sw3 = smem + kSW3;
   float* sx = smem + kSX;
   float* sh1 = smem + kSH1;
   float* sh2 = smem + kSH2;
@@ -105,135 +160,171 @@ mlp_train_partials_kernel(const float* __restrict__ x,
   float* sloss = smem + kSLoss;
 
   const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
   const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
   const int rows = static_cast<int>(
       min(static_cast<long long>(kRows), batch - row0));
 
-  for (int i = t; i < kIn * kHidden; i += kThreads) sw[kW1 + i] = w1[i];
-  for (int i = t; i < kHidden * kHidden; i += kThreads) sw[kW2 + i] = w2[i];
+  // staged by cp.async: every thread's copies are in flight at once
+  for (int i = t; i < kIn * kHidden; i += kThreads) cp_async4(sw1 + i, w1 + i);
+  for (int i = t; i < kHidden * kHidden; i += kThreads)
+    cp_async4(sw2 + (i / kHidden) * kPW2 + i % kHidden, w2 + i);
   if (t < kHidden) {
-    sw[kB1 + t] = b1[t];
-    sw[kB2 + t] = b2[t];
-    sw[kW3 + t] = w3[t];
+    cp_async4(sb1 + t, b1 + t);
+    cp_async4(sb2 + t, b2 + t);
+    cp_async4(sw3 + t, w3 + t);
   }
-  if (t == 0) sw[kB3] = b3[0];
+  if (t == 0) cp_async4(smem + kSB3, b3);
   const float* tile = x + row0 * kIn;
-  for (int i = t; i < rows * kIn; i += kThreads)
-    sx[(i / kIn) * kPX + i % kIn] = tile[i];
+  for (int i = t; i < kRows * kIn; i += kThreads) {
+    if (i < rows * kIn) cp_async4(sx + i, tile + i);
+    else sx[i] = 0.f;
+  }
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
 
-  // phase 1: one thread per row, forward and the row's own backward
-  if (t < rows) {
-    const float* xr = sx + t * kPX;
-    float h1[kHidden];
+  // phase 1: warp w runs rows 8w .. 8w+7 at once, a row across the lanes
+  const int first = warp * kWarpRows;
+  float acc[kWarpRows];
 #pragma unroll
-    for (int j = 0; j < kHidden; ++j) h1[j] = 0.f;
-#pragma unroll 4
-    for (int k = 0; k < kIn; ++k) {
-      const float xk = xr[k];
-      const float4* wr =
-          reinterpret_cast<const float4*>(sw + kW1 + k * kHidden);
+  for (int i = 0; i < kWarpRows; ++i) acc[i] = 0.f;
+#pragma unroll 2
+  for (int k4 = 0; k4 < kIn; k4 += 4) {
+    float4 xv[kWarpRows];
 #pragma unroll
-      for (int q = 0; q < kHidden / 4; ++q) {
-        const float4 w = wr[q];
-        h1[4 * q + 0] = fmaf(xk, w.x, h1[4 * q + 0]);
-        h1[4 * q + 1] = fmaf(xk, w.y, h1[4 * q + 1]);
-        h1[4 * q + 2] = fmaf(xk, w.z, h1[4 * q + 2]);
-        h1[4 * q + 3] = fmaf(xk, w.w, h1[4 * q + 3]);
-      }
-    }
+    for (int i = 0; i < kWarpRows; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(sx + (first + i) * kIn + k4);
 #pragma unroll
-    for (int j = 0; j < kHidden; ++j) {
-      h1[j] = fmaxf(h1[j] + sw[kB1 + j], 0.f);
-      sh1[t * kPH + j] = h1[j];
-    }
-
-    float h2[kHidden];
+    for (int c = 0; c < 4; ++c) {
+      const float w = sw1[(k4 + c) * kHidden + lane];
 #pragma unroll
-    for (int j = 0; j < kHidden; ++j) h2[j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < kHidden; ++k) {
-      const float4* wr =
-          reinterpret_cast<const float4*>(sw + kW2 + k * kHidden);
-#pragma unroll
-      for (int q = 0; q < kHidden / 4; ++q) {
-        const float4 w = wr[q];
-        h2[4 * q + 0] = fmaf(h1[k], w.x, h2[4 * q + 0]);
-        h2[4 * q + 1] = fmaf(h1[k], w.y, h2[4 * q + 1]);
-        h2[4 * q + 2] = fmaf(h1[k], w.z, h2[4 * q + 2]);
-        h2[4 * q + 3] = fmaf(h1[k], w.w, h2[4 * q + 3]);
-      }
-    }
-    float z = 0.f;
-#pragma unroll
-    for (int j = 0; j < kHidden; ++j) {
-      h2[j] = fmaxf(h2[j] + sw[kB2 + j], 0.f);
-      sh2[t * kPH + j] = h2[j];
-      z = fmaf(h2[j], sw[kW3 + j], z);
-    }
-    z += sw[kB3];
-
-    // the loss term and dL/dz with JAX's tie rule
-    const float label = y[row0 + t];
-    const float e = expf(-fabsf(z));
-    sloss[t] = (fmaxf(z, 0.f) - z * label) + log1pf(e);
-    const float m = z > 0.f ? 1.f : (z == 0.f ? 0.5f : 0.f);
-    const float s = z >= 0.f ? 1.f : -1.f;
-    const float dz = (m - label) - s * (e / (1.f + e));
-    sdz[t] = dz;
-
-    float d2[kHidden];
-#pragma unroll
-    for (int j = 0; j < kHidden; ++j) {
-      d2[j] = h2[j] > 0.f ? dz * sw[kW3 + j] : 0.f;
-      sd2[t * kPH + j] = d2[j];
-    }
-#pragma unroll
-    for (int k = 0; k < kHidden; ++k) {
-      const float4* wr =
-          reinterpret_cast<const float4*>(sw + kW2 + k * kHidden);
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < kHidden / 4; ++q) {
-        const float4 w = wr[q];
-        acc = fmaf(d2[4 * q + 0], w.x, acc);
-        acc = fmaf(d2[4 * q + 1], w.y, acc);
-        acc = fmaf(d2[4 * q + 2], w.z, acc);
-        acc = fmaf(d2[4 * q + 3], w.w, acc);
-      }
-      sd1[t * kPH + k] = h1[k] > 0.f ? acc : 0.f;
+      for (int i = 0; i < kWarpRows; ++i)
+        acc[i] = fmaf(lane4(xv[i], c), w, acc[i]);
     }
   }
+  float h1[kWarpRows];
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+    h1[i] = fmaxf(acc[i] + sb1[lane], 0.f);
+    sh1[(first + i) * kPH + lane] = h1[i];
+    acc[i] = 0.f;
+  }
+  __syncwarp();
+
+#pragma unroll 2
+  for (int k4 = 0; k4 < kHidden; k4 += 4) {
+    float4 hv[kWarpRows];
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i)
+      hv[i] = *reinterpret_cast<const float4*>(sh1 + (first + i) * kPH + k4);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float w = sw2[(k4 + c) * kPW2 + lane];
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i)
+        acc[i] = fmaf(lane4(hv[i], c), w, acc[i]);
+    }
+  }
+  float h2[kWarpRows];
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+    h2[i] = fmaxf(acc[i] + sb2[lane], 0.f);
+    sh2[(first + i) * kPH + lane] = h2[i];
+  }
+  __syncwarp();
+
+  // z, the loss term and dL/dz (JAX's tie rule) of row `mine`, in every
+  // lane; lane i < 8 keeps row i's
+  const int mine = first + (lane & (kWarpRows - 1));
+  float z = 0.f;
+#pragma unroll
+  for (int j4 = 0; j4 < kHidden; j4 += 4) {
+    const float4 hv =
+        *reinterpret_cast<const float4*>(sh2 + mine * kPH + j4);
+    const float4 wv = *reinterpret_cast<const float4*>(sw3 + j4);
+    z = fmaf(hv.x, wv.x, z);
+    z = fmaf(hv.y, wv.y, z);
+    z = fmaf(hv.z, wv.z, z);
+    z = fmaf(hv.w, wv.w, z);
+  }
+  z += smem[kSB3];
+  const float label = mine < rows ? y[row0 + mine] : 0.f;
+  const float e = expf(-fabsf(z));
+  const float loss = (fmaxf(z, 0.f) - z * label) + log1pf(e);
+  const float m = z > 0.f ? 1.f : (z == 0.f ? 0.5f : 0.f);
+  const float s = z >= 0.f ? 1.f : -1.f;
+  const float dz = (m - label) - s * (e / (1.f + e));
+  if (lane < kWarpRows) {
+    sloss[mine] = loss;
+    sdz[mine] = dz;
+  }
+
+  // d2[j] in lane j; then d1[k] = (d2 W2^T)[k] relu'(h1[k]) in lane k
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+    const float dzi = __shfl_sync(kAll, dz, i);
+    sd2[(first + i) * kPH + lane] = h2[i] > 0.f ? dzi * sw3[lane] : 0.f;
+    acc[i] = 0.f;
+  }
+  __syncwarp();
+#pragma unroll 2
+  for (int j4 = 0; j4 < kHidden; j4 += 4) {
+    float4 dv[kWarpRows];
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i)
+      dv[i] = *reinterpret_cast<const float4*>(sd2 + (first + i) * kPH + j4);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float w = sw2[lane * kPW2 + j4 + c];
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i)
+        acc[i] = fmaf(lane4(dv[i], c), w, acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i)
+    sd1[(first + i) * kPH + lane] = h1[i] > 0.f ? acc[i] : 0.f;
   __syncthreads();
 
-  // phase 2: each thread owns entries and sums the tile's rows in order,
-  // in double: a float32 product is exact there, so a partial carries one
-  // rounding, whatever the rows
+  // phase 2: each thread owns entries of this block's slice and sums the
+  // tile's rows in order, in double: a float32 product is exact there,
+  // so a partial carries one rounding, whatever the rows
   float* out = partials + static_cast<long long>(blockIdx.x) * kOut;
-  for (int e = t; e < kOut; e += kThreads) {
-    double acc = 0.0;
-    if (e < kB1) {                               // w1[m][k]: x_m d1_k
-      const int m = e / kHidden, k = e % kHidden;
+  for (int at = blockIdx.y * kSlice + t; at < kOut;
+       at += gridDim.y * kSlice) {
+    double sum = 0.0;
+    if (at < kB1) {                              // w1[m][k]: x_m d1_k
+      const int mi = at / kHidden, k = at % kHidden;
       for (int r = 0; r < rows; ++r)
-        acc = fma(double(sx[r * kPX + m]), double(sd1[r * kPH + k]), acc);
-    } else if (e < kW2) {                        // b1[k]: d1_k
-      for (int r = 0; r < rows; ++r) acc += sd1[r * kPH + (e - kB1)];
-    } else if (e < kB2) {                        // w2[k][j]: h1_k d2_j
-      const int k = (e - kW2) / kHidden, j = (e - kW2) % kHidden;
+        sum = fma(double(sx[r * kIn + mi]), double(sd1[r * kPH + k]), sum);
+    } else if (at < kW2) {                       // b1[k]: d1_k
+      for (int r = 0; r < rows; ++r) sum += sd1[r * kPH + (at - kB1)];
+    } else if (at < kB2) {                       // w2[k][j]: h1_k d2_j
+      const int k = (at - kW2) / kHidden, j = (at - kW2) % kHidden;
       for (int r = 0; r < rows; ++r)
-        acc = fma(double(sh1[r * kPH + k]), double(sd2[r * kPH + j]), acc);
-    } else if (e < kW3) {                        // b2[j]: d2_j
-      for (int r = 0; r < rows; ++r) acc += sd2[r * kPH + (e - kB2)];
-    } else if (e < kB3) {                        // w3[j]: h2_j dz
+        sum = fma(double(sh1[r * kPH + k]), double(sd2[r * kPH + j]), sum);
+    } else if (at < kW3) {                       // b2[j]: d2_j
+      for (int r = 0; r < rows; ++r) sum += sd2[r * kPH + (at - kB2)];
+    } else if (at < kB3) {                       // w3[j]: h2_j dz
       for (int r = 0; r < rows; ++r)
-        acc = fma(double(sh2[r * kPH + (e - kW3)]), double(sdz[r]), acc);
-    } else if (e == kB3) {                       // b3: dz
-      for (int r = 0; r < rows; ++r) acc += sdz[r];
+        sum = fma(double(sh2[r * kPH + (at - kW3)]), double(sdz[r]), sum);
+    } else if (at == kB3) {                      // b3: dz
+      for (int r = 0; r < rows; ++r) sum += sdz[r];
     } else {                                     // the loss
-      for (int r = 0; r < rows; ++r) acc += sloss[r];
+      for (int r = 0; r < rows; ++r) sum += sloss[r];
     }
-    out[e] = static_cast<float>(acc);
+    out[at] = static_cast<float>(sum);
   }
+}
+
+// entry slices per tile: enough blocks to fill the card, one slice a
+// tile once the tiles alone do
+int train_slices(long long tiles) {
+  const long long want = (kTargetBlocks + tiles - 1) / tiles;
+  return static_cast<int>(want < 1 ? 1 : want > kMaxSlices ? kMaxSlices
+                                                           : want);
 }
 
 struct Params {
@@ -294,20 +385,22 @@ int on_device(int device, Launch launch) {
 
 // Launches K2a on `stream` (a cudaStream_t) of `device` over `batch` >= 1
 // rows: x [batch, 80], y [batch] and the reference-layout weights are
-// contiguous fp32 device buffers, partials [ceil(batch/64), 3682].
+// contiguous fp32 device buffers, partials [ceil(batch/64), 3682].  The
+// grid is ceil(batch/64) tiles x train_slices() entry slices.
 // Returns the cudaError_t of the launch; it does not synchronise.
 extern "C" int mlp_train_partials_launch(
     const float* x, const float* y, const float* w1, const float* b1,
     const float* w2, const float* b2, const float* w3, const float* b3,
     float* partials, int batch, int device, void* stream) {
-  const unsigned blocks =
-      static_cast<unsigned>((static_cast<long long>(batch) + kRows - 1) / kRows);
+  const long long tiles = (static_cast<long long>(batch) + kRows - 1) / kRows;
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>(train_slices(tiles)));
   return on_device(device, [&] {
     const cudaError_t err = cudaFuncSetAttribute(
         mlp_train_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    mlp_train_partials_kernel<<<blocks, kThreads, kSmemBytes,
+    mlp_train_partials_kernel<<<grid, kThreads, kSmemBytes,
                                 static_cast<cudaStream_t>(stream)>>>(
         x, y, w1, b1, w2, b2, w3, b3, partials, batch);
     return static_cast<int>(cudaGetLastError());

@@ -25,6 +25,7 @@ from manatee_tpu_torch.health.predictor import init_params, predict
 from manatee_tpu_torch.health.telemetry import TorchScorer
 from manatee_tpu_torch.health.train import evaluate_recorded
 from manatee_tpu_torch.kernels.mlp_forward import (
+    CROSSOVER,
     mlp_forward,
     mlp_forward_plain,
 )
@@ -176,7 +177,8 @@ print("clean")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 63, 64, 96, 4458, 65537])
+@pytest.mark.parametrize("batch", [1, 63, 64, 96, CROSSOVER - 1, CROSSOVER,
+                                   CROSSOVER + 1, 4458, 65537])
 def test_kernel_matches_plain_on_cuda(batch):
     _needs_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -20,6 +20,7 @@ import torch
 from manatee_tpu_torch.health import predictor, telemetry
 from manatee_tpu_torch.health.convert import load_npz
 from manatee_tpu_torch.health.telemetry import DEFAULT_WEIGHTS
+from manatee_tpu_torch.kernels import mlp_forward as k1
 from manatee_tpu_torch.kernels import synthetic_batch as k4
 from manatee_tpu_torch.kernels.mlp_train import (
     GRAD_SIZE,
@@ -161,9 +162,10 @@ def test_sgd_apply_plain_reduces_and_updates():
 
 # ---- on the card (skip without CUDA) --------------------------------
 
-# as chip_smoke.py: the main path's batches, and edge and bulk sizes
+# as chip_smoke.py: the main path's batches, and edge and bulk sizes;
+# K2a at 65 and 128 has partial tiles and several entry slices a tile
 K4_BATCHES = (1, 7, 16, 64, 249, 256, 2048, 65537)
-K2_BATCHES = (1, 7, 16, 249, 256, 4096, 65537)
+K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
 QUALITY_SEEDS = (0, 1, 2, 3, 4)
 
 
@@ -215,6 +217,29 @@ def test_train_step_kernels_match_plain_on_cuda(batch, kind):
                 assert float((a - b).abs().max()) <= 1e-5
                 assert torch.equal(a, c)          # no atomics: same bits
             assert torch.equal(loss, loss2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 64, 249, 256, k1.CROSSOVER, 65537])
+def test_kernels_rerun_to_the_same_bits_on_cuda(batch):
+    """Two launches of K1 (in every launch shape, all equal) and two of
+    K2a on the same inputs give the same bits: no atomics, no order that
+    depends on scheduling."""
+    _needs_cuda()
+    g = torch.Generator(device="cuda").manual_seed(batch)
+    x = 4 * torch.randn(batch, 16, 5, generator=g, device="cuda")
+    y = torch.rand(batch, generator=g, device="cuda").round()
+    for w in (_weights("cuda"), [t.detach() for t in load_npz(
+            DEFAULT_WEIGHTS).to("cuda").tensors()]):
+        with torch.no_grad():
+            first = k1.mlp_forward(x, *w)
+            runs = [k1.mlp_forward(x, *w) for _ in range(2)]
+            runs += [k1._launch(x, w, s) for s in k1.SHAPES]
+        partials = mlp_train_partials(x, y, *w)
+        again = mlp_train_partials(x, y, *w)
+        torch.cuda.synchronize()
+        assert all(torch.equal(first, r) for r in runs)
+        assert torch.equal(partials, again)
 
 
 @pytest.mark.cuda
