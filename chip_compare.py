@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Hold K1 and K2a, and the paths that run them, to those of another
-tree (a parent commit unpacked with `git archive`) on one CUDA card.
+"""Hold K1, K2a, K4 and K5, and the paths that run them, to those of
+another tree (a parent commit unpacked with `git archive`) on one CUDA
+card.
 
     python3 chip_compare.py PARENT_TREE
 
@@ -16,16 +17,24 @@ come from this tree.  In order:
   1. bits: K1 and K2a of each tree on the same inputs, over the batches
      below (with this tree's K1 crossover and a row either side), four
      kinds of input, two sets of weights and, for K2a, three kinds of
-     labels (zeros x seed-0 weights is the z = 0 tie).  Every input and
-     every output is reduced to the sha256 of its bytes; the inputs must
-     agree and so must the outputs, bit for bit;
+     labels (zeros x seed-0 weights is the z = 0 tie); K4 on the draws
+     of seeds 0-2 at chip_smoke.py's batches and 65,537; K5 on the
+     states of all six configs (P = 3 and 4) under each knob set at
+     chip_smoke.py's edge batches, and at 65,537 rows for one config of
+     each P.  Every input and every output is reduced to the sha256 of
+     its bytes; the inputs must agree and so must the outputs, bit for
+     bit;
   2. each kernel alone, a process a turn (parent, change, change,
      parent, parent, change), CUDA events: K1 at the batches the paths
-     give it and at bulk, and K2a;
-  3. the paths in turns, a process a run: the wall of evaluate(n_traces=
-     60, seed=7) and of train(), and, in the first run of each tree, the
-     replay dicts of every recorded dir, the bytes of the weights
-     train(seed=0) exports and evaluate's reading of train seeds 0-4.
+     give it and at bulk, K2a, K4 at 249, 256 and 65,536 rows and K5 at
+     the probe's chunk and 65,536 rows;
+  3. the paths in twelve turns (parent, change, change, parent, ... and
+     the same reversed), a process a run: the wall of evaluate(n_traces=
+     60, seed=7), of train() and of the probe's explore at depth 5 and
+     7, and, in the first run of each tree, the replay dicts of every
+     recorded dir, the bytes of the weights train(seed=0) exports,
+     evaluate's reading of train seeds 0-4 and the probe's counters and
+     the sha256 of its (digest, trace, verdict) set at depth 5 and 7.
      The readings of the two trees must be equal.
 
 Prints one JSON line per result and exits non-zero if anything differs.
@@ -46,15 +55,37 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import COLD_BYTES, card_line, device_ms, input_kinds, require
+from chip_smoke import (
+    COLD_BYTES,
+    K4_BATCHES,
+    MC_CHUNK,
+    MC_CONFIG,
+    MC_EDGE,
+    MC_KNOB_SETS,
+    PROMOTE_STATES,
+    card_line,
+    device_ms,
+    input_kinds,
+    mc_levels,
+    require,
+    tile_rows,
+)
 
 REPO = Path(__file__).resolve().parent
 K1_BATCHES = (1, 63, 64, 96, 374, 2048, 4458, 65537)   # + the crossover's
 K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
 K1_TIMED = (1, 64, 374, 2048, 65536)
 K2_TIMED = (256, 65536)
+K4_TIMED = (249, 256, 65536)
+K5_TIMED = (MC_CHUNK, 65536)
+BULK_ROWS = 65537                # K4's and K5's odd bulk batch
+K5_BULK_CONFIGS = ("deaths3", "promote")    # P = 3 and 4
+PROBE_DEPTHS = (5, 7)
 EVALUATE_REPEATS = 5             # evaluate() runs a process, each timed
 TURNS = ("parent", "change", "change", "parent", "parent", "change")
+# the paths' walls drift across a call more than the kernels' times:
+# twice the turns, in an order whose halves mirror each other
+PATH_TURNS = TURNS + TURNS[::-1]
 
 
 def sha(*tensors: torch.Tensor) -> str:
@@ -100,6 +131,43 @@ def side_bits(k1_batches) -> dict:
                             wname, batch, kind, lname)] = [
                             sha(x, y, *w),
                             sha(mlp_train_partials(x, y, *w))]
+    out.update(side_bits_k4(dev))
+    out.update(side_bits_k5(dev))
+    return out
+
+
+def side_bits_k4(dev) -> dict:
+    from manatee_tpu_torch.health.predictor import synthetic_draws
+    from manatee_tpu_torch.kernels.synthetic_batch import (
+        DRAWS,
+        synthetic_windows,
+    )
+
+    out = {}
+    for batch in sorted({*K4_BATCHES, BULK_ROWS}):
+        for seed in (0, 1, 2):
+            draws = synthetic_draws(
+                torch.Generator(device=dev).manual_seed(seed), batch, dev)
+            out["K4 B=%d seed %d" % (batch, seed)] = [
+                sha(*(draws[n] for n in DRAWS)),
+                sha(*synthetic_windows(draws))]
+    return out
+
+
+def side_bits_k5(dev) -> dict:
+    from manatee_tpu_torch.kernels.mc_step import mc_step
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    out = {}
+    for name in sorted(CONFIGS):
+        for kw in MC_KNOB_SETS:
+            rows, knobs, P = mc_levels(name, kw)
+            knobs = knobs.to(dev)
+            bulk = (BULK_ROWS,) if name in K5_BULK_CONFIGS and not kw else ()
+            for batch in (*MC_EDGE, *bulk):
+                vs = tile_rows(rows, batch).to(dev)
+                out["K5 %s %s B=%d" % (name, sorted(kw), batch)] = [
+                    sha(vs, knobs), sha(*mc_step(vs, knobs, P))]
     return out
 
 
@@ -124,6 +192,52 @@ def side_kernels() -> dict:
                      (torch.rand(batch, generator=g, device=dev) > 0.5)
                      .float(), *w) for _ in range(n)]
             out["K2a"][batch] = device_ms(mlp_train_partials, args)
+    out.update(side_kernels_k4_k5(dev, g))
+    return out
+
+
+def side_kernels_k4_k5(dev, g) -> dict:
+    from manatee_tpu_torch.health.predictor import synthetic_draws
+    from manatee_tpu_torch.kernels.mc_step import mc_step
+    from manatee_tpu_torch.kernels.synthetic_batch import synthetic_windows
+
+    out = {"K4": {}, "K5": {}}
+    for batch in K4_TIMED:
+        n = max(1, min(8, COLD_BYTES // (batch * 680)))
+        out["K4"][batch] = device_ms(synthetic_windows, [
+            (synthetic_draws(g, batch, dev),) for _ in range(n)])
+    rows, knobs, P = mc_levels(MC_CONFIG, {})
+    knobs = knobs.to(dev)
+    for batch in K5_TIMED:
+        # at 65,536 rows a launch takes milliseconds: fewer samples
+        reps = dict(reps=7, inner=5) if batch > MC_CHUNK else {}
+        out["K5"][batch] = device_ms(
+            mc_step, [(tile_rows(rows, batch).to(dev), knobs, P)], **reps)
+    return out
+
+
+def probe(depth: int, full: bool) -> dict:
+    """explore_torch of the probe's config at *depth* on the card: its
+    wall and, when *full*, its counters and the sha256 of its (digest,
+    trace, verdict) set."""
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    got = {}
+    t0 = time.perf_counter()
+    res = ma.explore_torch(
+        CONFIGS[MC_CONFIG], depth=depth, chunk=MC_CHUNK, device="cuda",
+        collect=lambda d, seq, cats: got.setdefault(d, (seq, cats)))
+    torch.cuda.synchronize()
+    out = {"wall_s": time.perf_counter() - t0}
+    if full:
+        items = sorted((d, repr(seq), sorted(cats))
+                       for d, (seq, cats) in got.items())
+        out.update(states=res.states, nodes=res.nodes,
+                   transitions=res.transitions, ok=res.ok,
+                   complete=res.complete,
+                   digests_sha256=hashlib.sha256(
+                       repr(items).encode()).hexdigest())
     return out
 
 
@@ -138,6 +252,7 @@ def side_paths(full: bool) -> dict:
     rec = train.recorded_windows(mix)
     train.evaluate(n_traces=2, seed=7)          # warm: build, load, caches
     train.train(steps=2, recorded=rec)
+    probe(2, full=False)
     torch.cuda.synchronize()
     out = {"evaluate_wall_s": []}
     for _ in range(EVALUATE_REPEATS):
@@ -148,6 +263,7 @@ def side_paths(full: bool) -> dict:
     train.train(recorded=rec)
     torch.cuda.synchronize()
     out["train_wall_s"] = time.perf_counter() - t0
+    out["probe"] = {depth: probe(depth, full) for depth in PROBE_DEPTHS}
     if not full:
         return out
     out["replay"] = {d: train.evaluate_recorded(f) for d, f in dirs.items()}
@@ -203,7 +319,11 @@ def bit_identity(parent: Path) -> dict:
                 % case)
     return {"K1_launches_equal": sum(c.startswith("K1") for c in got),
             "K2a_launches_equal": sum(c.startswith("K2a") for c in got),
-            "K1_batches": k1_batches, "K2a_batches": K2_BATCHES}
+            "K4_launches_equal": sum(c.startswith("K4") for c in got),
+            "K5_launches_equal": sum(c.startswith("K5") for c in got),
+            "K1_batches": k1_batches, "K2a_batches": K2_BATCHES,
+            "K4_batches": sorted({*K4_BATCHES, BULK_ROWS}),
+            "K5_batches": MC_EDGE, "K5_bulk": [BULK_ROWS, K5_BULK_CONFIGS]}
 
 
 def kernel_turns(parent: Path) -> dict:
@@ -224,20 +344,30 @@ def kernel_turns(parent: Path) -> dict:
 def path_turns(parent: Path) -> dict:
     """The paths in turns, a fresh process a run, each in its tree."""
     runs = {"parent": [], "change": []}
-    for side_name in TURNS:
+    for side_name in PATH_TURNS:
         tree = parent if side_name == "parent" else REPO
         mode = "paths-walls" if runs[side_name] else "paths-full"
-        runs[side_name].append(run_side(tree, mode))
+        res = run_side(tree, mode)
+        if mode == "paths-full":
+            res["probe_full"] = {d: {k: v for k, v in p.items()
+                                     if k != "wall_s"}
+                                 for d, p in res["probe"].items()}
+        runs[side_name].append(res)
     first = {s: r[0] for s, r in runs.items()}
-    for key in ("replay", "seed0_weights_sha256", "seed0_loss", "quality"):
+    for key in ("replay", "seed0_weights_sha256", "seed0_loss", "quality",
+                "probe_full"):
         require(first["parent"][key] == first["change"][key],
                 "%s differs: parent %s, change %s" % (
                     key, first["parent"][key], first["change"][key]))
+    for depth, p in first["change"]["probe_full"].items():
+        require(p["ok"] and p["complete"]
+                and p["states"] == PROMOTE_STATES[int(depth)],
+                "probe at depth %s: %s" % (depth, p))
     for side_name in runs:
         require(all(r["evaluate"] == first[side_name]["evaluate"]
                     for r in runs[side_name]), "evaluate moved between runs")
     return {
-        "order": TURNS,
+        "order": PATH_TURNS,
         "evaluate_wall_s": {s: [r["evaluate_wall_s"] for r in v]
                             for s, v in runs.items()},
         "evaluate_wall_median_s": {
@@ -245,6 +375,10 @@ def path_turns(parent: Path) -> dict:
             for s, v in runs.items()},
         "train_wall_s": {s: [r["train_wall_s"] for r in v]
                          for s, v in runs.items()},
+        "probe_wall_s": {s: {d: [r["probe"][d]["wall_s"] for r in v]
+                             for d in v[0]["probe"]}
+                         for s, v in runs.items()},
+        "probe": first["change"]["probe_full"],
         "evaluate": first["change"]["evaluate"],
         "replay_equal": True,
         "seed0_weights_sha256": first["change"]["seed0_weights_sha256"],

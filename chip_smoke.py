@@ -15,7 +15,9 @@ phase catches its own failure:
      and a row either side, and every batch the serving path gives it,
      on four kinds of input and two sets of weights; every launch shape
      gives the same bits;
-  d. K4 against its plain version: equal bit for bit, three seeds;
+  d. K4 against its plain version: equal bit for bit, three seeds, at
+     the paths' batches, odd batches and partial blocks; its cached
+     ramp is torch.linspace's own;
   e. K2 (K2a + K2b, one training step) against its plain version, TF32
      off, on four kinds of input, three kinds of labels and two sets of
      weights (zeros x seed-0 weights is the z = 0 tie), at batches with
@@ -44,7 +46,8 @@ phase catches its own failure:
      timed (CUDA events), beside K2 alone and the all-reduce alone;
   k. the model checker's kernels K5, K6 and K7 against their plain
      versions, equal element for element, on the states of all six
-     configs under each knob set at B = 1, 7, 256 and 1024;
+     configs (P = 3 and 4) under each knob set (every mutation) at the
+     edge batches below, which leave a partial last K5 block;
   l. the model checker's main path, launch counts set to 0 just before
      it: the probe (mc_array.main: promote, chunk 1024, cold depth 2,
      depth 5 = 2,763 states, depth 7 = 21,038 states) on the card, every
@@ -76,10 +79,11 @@ phase catches its own failure:
      one-element fill_); then each kernel, its plain version and a
      library yardstick where one exists, timed with CUDA events (K1 at
      B = 1, 64, the largest trace, 2,048, 4,096, 8,192, 16,384 and
-     65,536 in both launch shapes; K2a's bound counts its double sums at the fp64 rate; K5-K7
-     at chunk 1024 and at 65,536 rows of real frontier states, with the
-     sort's time apart; K8 over 1, 2 and 4 shards at both sizes, with
-     the gather's time apart);
+     65,536 in both launch shapes; K2a's bound counts its double sums at
+     the fp64 rate; K4 at 249, 256 and 65,536; K5-K7 at chunk 1024 and
+     at 65,536 rows of real frontier states, K7 with the sort's time
+     apart; K8 over 1, 2 and 4 shards at both sizes, with the gather's
+     time apart);
   n. one JSON line describing every kernel, K1-K8;
   o. last line: {"ok": true, "device": {...}}.
 
@@ -106,15 +110,17 @@ TOL = 1e-5                       # kernel vs plain, fp32 sums in another order
 # every batch the main path gives a kernel, and edge and bulk sizes:
 # K1 1 (evaluate's ticks), 64 (entry), 2048 (held-out accuracy), each
 # recorded trace's (added in phase c); K4 16 (dryrun_multichip), 64
-# (entry), 249 (a training step), 2048 (held-out accuracy); K2 16
+# (entry), 249 (a training step), 2048 (held-out accuracy), and odd
+# batches and partial blocks of 8 windows; K2 16
 # (dryrun_multichip's one rank), 256 (a training step)
 CHECK_BATCHES = (1, 63, 64, 96, 2048, 4458, 65537)
-K4_BATCHES = (1, 7, 16, 64, 249, 256, 2048, 65537)
+K4_BATCHES = (1, 2, 3, 7, 15, 16, 17, 64, 249, 255, 256, 257, 2048, 65537)
 # K2a at 65 and 128: partial tiles, several entry slices a tile
 K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
 QUALITY_SEEDS = (0, 1, 2, 3, 4)  # train() seeds read against the bar
 TRAIN_BATCH = 256                # the training path's batch (249 + 7 rows)
 BULK_BATCH = 65536               # the batch the kernels line reports
+K4_TIMED = (249, TRAIN_BATCH, BULK_BATCH)   # a step's rows, 256, bulk
 # K1's timed batches (+ the largest trace's): the paths' and, around the
 # crossover, those that chose it
 K1_TIMED = (1, 64, 2048, 4096, 8192, 16384, BULK_BATCH)
@@ -301,6 +307,9 @@ def check_k4(dev) -> None:
                     "K4 differs from plain (B=%d, seed %d): %d windows"
                     % (batch, seed, int((got[0] != want[0]).any(-1).any(-1)
                                         .sum())))
+    require(torch.equal(k4.ramp(dev).view(torch.int32),
+                        torch.linspace(0.0, 1.0, 16, device=dev)
+                        .view(torch.int32)), "K4's cached ramp")
     print("K4 vs plain: equal bit for bit over B=%s, seeds 0-2"
           % (K4_BATCHES,))
 
@@ -517,7 +526,9 @@ def slice_parity(dev) -> float:
 
 MC_CONFIG = "promote"            # the probe's config (P = 4)
 MC_CHUNK = 1024                  # the probe's chunk
-MC_EDGE = (1, 7, 256, 1024)      # edge batches of K5-K7
+# edge batches of K5-K7: with a partial last K5 block (1, 3, 5, 7, 1023,
+# 1025) and the probe's chunk
+MC_EDGE = (1, 3, 5, 7, 256, 1023, 1024, 1025)
 MC_BULK = 65536                  # rows of real frontier states, for timing
 MC_SWEEP_DEPTH = 8               # `make modelcheck-jax`'s depth
 # promote's states at depth 5 and 7 (MULTICHIP_modelcheck.json)
@@ -619,7 +630,7 @@ def tile_rows(rows: torch.Tensor, batch: int) -> torch.Tensor:
 
 def check_mc_edges(dev) -> int:
     """K5, K6 and K7 against their plain versions on the states of all
-    six configs under each knob set, at the edge batches."""
+    six configs (P = 3 and 4) under each knob set, at the edge batches."""
     from manatee_tpu_torch.kernels import mc_dedup, mc_step
     from manatee_tpu_torch.state.modelcheck import CONFIGS
 
@@ -1473,13 +1484,15 @@ def main() -> int:
                     + 2 * k2.N_PARAMS * 4,
                     n_blocks * k2.GRAD_SIZE + k2.GRAD_SIZE
                     + 2 * k2.N_PARAMS, bw, flops)}
+
+    for batch in K4_TIMED:
         n_bufs = max(1, min(8, COLD_BYTES // (batch * 680)))
         draw_sets = [(synthetic_draws(g, batch, dev),)
                      for _ in range(n_bufs)]
         timing["K4"][batch] = {
             "ms": device_ms(k4.synthetic_windows, draw_sets),
             "plain_ms": device_ms(k4.synthetic_windows_plain, draw_sets),
-            "library_ms": None,
+            "library_ms": None, "launch_floor_ms": floor_ms,
             **bound(batch * 680 + 16 * 4, batch * K4_FLOP, bw, flops)}
 
     # the checker's depth-7 run under the profiler, then K5-K7 alone

@@ -24,14 +24,23 @@
 // at P = 4), so bytes bound it; K6 reads B*SIZE*4 and writes B*4, and is
 // bound by its serial per-row work (up to 30 rounds of P evaluations).
 //
-// Design (right and simple first; these are exact int32 results, one
-// differing element is a wrong answer):
-// * K5: one thread per (row, slot), R rows per block.  The block stages
-//   its R parents in shared memory (<= 704 bytes a row); each thread
-//   copies its parent into a local array, applies its slot through a
-//   switch on the slot kind, computes safety_mask on the child, and
-//   writes child, viol and enabled.  A disabled slot writes the PARENT
-//   as its child and 0 as its viol (:1221-1222).
+// Design (these are exact int32 results, one differing element is a
+// wrong answer):
+// * K5: one thread per (row, slot), R = kStepRows rows a block.  The
+//   block stages its R parents in
+//   shared memory and fills its R x S children there from them, both
+//   with coalesced sweeps; each slot's thread then applies its slot to
+//   its own child in shared memory (a switch on the slot kind) and
+//   computes safety_mask on it, and writes viol and enabled.  A disabled
+//   slot leaves the PARENT as its child and writes 0 as its viol
+//   (:1221-1222).  The block's children are one contiguous range of the
+//   output, stored in one coalesced sweep of 16-byte stores.  The slot's
+//   kind and argument are computed from its index (slot_of), not read
+//   from a table in local memory.  The children take R * S * PITCH
+//   ints (~24 KB a row at P = 4, ~13 KB at P = 3), so the block of two
+//   rows at P = 4 (49,616 bytes) opts in to over 48 KB of dynamic shared
+//   memory.  R = 2: of 1 to 8 rows a block, timed on an H100, 2 to 4
+//   were the fastest at chunk 1024 and at 65,536 rows (PERF.md).
 // * K6: one thread per row on a local copy.  A vmapped lax.while_loop
 //   freezes a row once its own condition is false, so the thread's loop
 //   stops at `done` or after 30 rounds; within a round, peer i's
@@ -79,7 +88,8 @@ constexpr int B_ROLE_MISMATCH = 1 << 14;
 constexpr int B_CHAIN = 1 << 15;
 
 constexpr int MAX_ROUNDS = 30;
-constexpr int kStepRows = 4;        // K5: rows per block
+constexpr int kStepRows = 2;        // K5: rows (x S threads) a block
+constexpr int kKnobWords = 16;      // K5: shared words of the knobs
 constexpr int kLiveThreads = 64;    // K6: rows (threads) per block
 
 // The int32 encoding's offsets (mc_array.py Layout).
@@ -143,8 +153,42 @@ struct SlotTable {
   }
 };
 
+// Slot s's kind and argument, computed: K5 reads them by the thread's slot,
+// and a SlotTable indexed so would live in each thread's local memory.
+template <int P>
+__host__ __device__ constexpr void slot_of(int s, int& kind, int& arg) {
+  if (s < 3 * P) {
+    kind = EVAL + s % 3;
+    arg = s / 3;
+  } else if (s < 5 * P) {
+    kind = s < 4 * P ? KILL : REJOIN;
+    arg = s % P;
+  } else if (s < 7 * P) {
+    kind = PARTITION + (s - 5 * P) % 2;
+    arg = (s - 5 * P) / 2;
+  } else {
+    const int t = s - 7 * P;    // promote sync, expired, async 0 and 1, ...
+    kind = t < 2 ? PROMOTE_SYNC + t : t < 4 ? PROMOTE_ASYNC : FREEZE + t - 4;
+    arg = t == 3 ? 1 : 0;
+  }
+}
+
+template <int P>
+constexpr bool slot_of_is_the_table() {
+  constexpr SlotTable<P> table{};
+  for (int s = 0; s < Lay<P>::S; ++s) {
+    int kind = -1, arg = -1;
+    slot_of<P>(s, kind, arg);
+    if (kind != table.kind[s] || arg != table.arg[s]) return false;
+  }
+  return true;
+}
+
+static_assert(slot_of_is_the_table<3>() && slot_of_is_the_table<4>(),
+              "slot_of follows slot_table(P)'s order");
+
 // ---------------------------------------------------------------------------
-// helpers on one state (a local int array)
+// helpers on one state (an int array: local memory in K6, shared in K5)
 
 template <int P>
 struct SB {
@@ -735,38 +779,83 @@ __device__ int predicates(const int* v) {
 // ---------------------------------------------------------------------------
 // the kernels
 
+// K5's shared memory: the knobs (padded to kKnobWords), the block's
+// parents at pitch SIZE, then its children at an odd pitch, so that the
+// slots' threads of a warp, each at the same offset of its own child,
+// fall in 32 different banks (176 = 16 mod 32 would put them in two).
+template <int P>
+struct StepSmem {
+  static constexpr int PITCH = Lay<P>::SIZE | 1;
+  static constexpr int BYTES =
+      4 * (kKnobWords + kStepRows * Lay<P>::SIZE
+           + kStepRows * Lay<P>::S * PITCH);
+};
+
+static_assert(KNOBS <= kKnobWords && StepSmem<4>::BYTES <= 232448,
+              "K5's block fits an H100 SM's shared memory");
+
 template <int P>
 __global__ void __launch_bounds__(kStepRows * Lay<P>::S)
 mc_step_kernel(const int* __restrict__ vs, const int* __restrict__ knobs,
                int* __restrict__ children, int* __restrict__ viols,
                unsigned char* __restrict__ enabled, int batch) {
   using L = Lay<P>;
-  constexpr int S = L::S, SIZE = L::SIZE;
-  constexpr SlotTable<P> table{};
-  __shared__ int parents[kStepRows * SIZE];
-  __shared__ int kn[KNOBS];
+  constexpr int S = L::S, SIZE = L::SIZE, PITCH = StepSmem<P>::PITCH;
+  constexpr int nthreads = kStepRows * S;
+  extern __shared__ int smem[];
+  int* kn = smem;
+  int* parents = smem + kKnobWords;
+  int* kids = parents + kStepRows * SIZE;
+  const int tid = threadIdx.x;
   const long long row0 = static_cast<long long>(blockIdx.x) * kStepRows;
   const int nrows = static_cast<int>(
       min(static_cast<long long>(kStepRows), batch - row0));
-  for (int t = threadIdx.x; t < nrows * SIZE; t += blockDim.x)
+  const int n = nrows * S * SIZE;          // the block's children, in ints
+
+  // the parents, coalesced; then every child starts as its parent
+  for (int t = tid; t < nrows * SIZE; t += nthreads)
     parents[t] = vs[row0 * SIZE + t];
-  if (threadIdx.x < KNOBS) kn[threadIdx.x] = knobs[threadIdx.x];
+  if (tid < KNOBS) kn[tid] = knobs[tid];
   __syncthreads();
-  const int r = threadIdx.x / S, s = threadIdx.x % S;
-  if (r >= nrows) return;
-  const int* p = parents + r * SIZE;
-  int c[SIZE];
-  for (int k = 0; k < SIZE; ++k) c[k] = p[k];
-  const int kind = table.kind[s], arg = table.arg[s];
-  const bool en = slot_enabled<P>(p, kind, arg, kn);
-  int viol = 0;
-  if (en) viol = apply_slot<P>(p, c, kind, arg, kn) | safety<P>(c);
-  // a disabled slot's child is the parent, its bits 0
-  const long long out = (row0 + r) * S + s;
-  int* child = children + out * SIZE;
-  for (int k = 0; k < SIZE; ++k) child[k] = c[k];
-  viols[out] = viol;
-  enabled[out] = en ? 1 : 0;
+  for (int t = tid; t < n; t += nthreads) {
+    const int c = t / SIZE, k = t % SIZE;
+    kids[c * PITCH + k] = parents[(c / S) * SIZE + k];
+  }
+  __syncthreads();
+
+  // the slot's own work on its child in shared memory; a disabled slot's
+  // child stays the parent, its bits 0
+  const int r = tid / S, s = tid % S;
+  if (r < nrows) {
+    const int* p = parents + r * SIZE;
+    int* c = kids + tid * PITCH;
+    int kind = EVAL, arg = 0;
+    slot_of<P>(s, kind, arg);
+    const bool en = slot_enabled<P>(p, kind, arg, kn);
+    int viol = 0;
+    if (en) viol = apply_slot<P>(p, c, kind, arg, kn) | safety<P>(c);
+    const long long out = row0 * S + tid;
+    viols[out] = viol;
+    enabled[out] = en ? 1 : 0;
+  }
+  __syncthreads();
+
+  // the block's children are one contiguous range of the output: one
+  // coalesced sweep, the pitch's pad skipped, in 16-byte stores from the
+  // range's first 16-byte boundary on
+  int* dst = children + row0 * S * SIZE;
+  auto kid = [&](int t) { return kids[(t / SIZE) * PITCH + t % SIZE]; };
+  const int head = min(
+      n, static_cast<int>(-(reinterpret_cast<unsigned long long>(dst) >> 2)
+                          & 3));
+  const int quads = (n - head) / 4;
+  int4* dst4 = reinterpret_cast<int4*>(dst + head);
+  for (int j = tid; j < quads; j += nthreads) {
+    const int t = head + 4 * j;
+    dst4[j] = make_int4(kid(t), kid(t + 1), kid(t + 2), kid(t + 3));
+  }
+  for (int t = tid; t < head; t += nthreads) dst[t] = kid(t);
+  for (int t = head + 4 * quads + tid; t < n; t += nthreads) dst[t] = kid(t);
 }
 
 template <int P>
@@ -813,12 +902,22 @@ mc_liveness_kernel(const int* __restrict__ vs, const int* __restrict__ knobs,
   bits[row] = viol | (done ? predicates<P>(v) : B_NO_FIXPOINT);
 }
 
+// K5 over kStepRows rows a block.  A kernel that takes more than 48 KB
+// of dynamic shared memory must opt in on each device it runs on (K8
+// launches K5 on several): a host-side call made before every such launch,
+// on the current device.
 template <int P>
 int launch_step(const int* vs, const int* knobs, int* children, int* viols,
                 unsigned char* enabled, int batch, cudaStream_t stream) {
+  constexpr int smem = StepSmem<P>::BYTES;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mc_step_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const unsigned blocks = static_cast<unsigned>(
       (static_cast<long long>(batch) + kStepRows - 1) / kStepRows);
-  mc_step_kernel<P><<<blocks, kStepRows * Lay<P>::S, 0, stream>>>(
+  mc_step_kernel<P><<<blocks, kStepRows * Lay<P>::S, smem, stream>>>(
       vs, knobs, children, viols, enabled, batch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -92,6 +92,24 @@ def synthetic_windows_plain(draws: dict[str, torch.Tensor]
     return windows * keep[..., None], labels
 
 
+_ramps: dict[torch.device, torch.Tensor] = {}   # device -> the cached ramp
+
+
+def ramp(device: torch.device) -> torch.Tensor:
+    """torch.linspace(0, 1, WINDOW) on *device*, made once a device and
+    kept: the plain version's ramp, bit for bit, without a launch and an
+    allocation on every call.  Callers must not write to it."""
+    device = torch.device(device)
+    t = _ramps.get(device)
+    if t is None:
+        t = torch.linspace(0.0, 1.0, WINDOW, device=device)
+        if t.is_cuda:
+            # made on this stream; a launch on another may read it next
+            torch.cuda.current_stream(device).synchronize()
+        _ramps[device] = t
+    return t
+
+
 def _library() -> ctypes.CDLL:
     lib = nvcc.load("synthetic_batch")
     if lib.synthetic_batch_launch.argtypes is None:
@@ -128,8 +146,7 @@ def synthetic_windows(draws: dict[str, torch.Tensor]
     labels = torch.empty(batch, dtype=torch.float32, device=device)
     if batch == 0:
         return windows, labels
-    # torch.linspace's own values: the plain version's ramp, bit for bit
-    trend = torch.linspace(0.0, 1.0, WINDOW, device=device)
+    trend = ramp(device)
     lib = _library()
     err = lib.synthetic_batch_launch(
         *(draws[name].data_ptr() for name in DRAWS), trend.data_ptr(),

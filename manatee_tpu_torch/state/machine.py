@@ -2,8 +2,9 @@
 
 The port's copy of manatee_tpu/state/machine.py, line for line, with its
 imports pointed at the port's own ``types`` and ``_support``: the model
-checker drives this copy, and tests/test_torch_mc_copies.py holds its
-exploration to the control plane's.
+checker drives this copy, and tests/test_torch_mc_parity.py::
+test_oracle_explores_what_the_reference_explores holds its exploration
+to the control plane's.
 
 The reference outsources this to the `manatee-state-machine` dependency
 (consumed at lib/shard.js:59-71); its behavior is re-derived here from the

@@ -280,6 +280,17 @@ def _chunks(levels, chunk):
     return out
 
 
+def _tiled(levels, batch):
+    """*batch* rows of the levels, repeated as often as needed."""
+    vs = torch.cat(levels)
+    return vs.repeat(-(-batch // len(vs)), 1)[:batch].contiguous()
+
+
+# K5's batches with a partial last block (csrc/mc_array.cu's kStepRows,
+# 2 rows a block)
+PARTIAL_BATCHES = (1, 3, 5, 1023, 1025)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(mc.CONFIGS))
 @pytest.mark.parametrize("mut", sorted(MUTATIONS))
@@ -289,8 +300,10 @@ def test_kernels_match_plain_on_cuda(name, mut):
     P = len(cfg.peers)
     knobs = torch.from_numpy(ma.make_knobs(cfg, MUTATIONS[mut]))
     kc = knobs.cuda()
-    for part in _chunks(_frontiers(name, 4, MUTATIONS[mut]), 256) + \
-            _chunks(_frontiers(name, 1, MUTATIONS[mut]), 1):
+    levels = _frontiers(name, 4, MUTATIONS[mut])
+    for part in _chunks(levels, 256) + \
+            _chunks(_frontiers(name, 1, MUTATIONS[mut]), 1) + \
+            [_tiled(levels, b) for b in PARTIAL_BATCHES]:
         vc = part.cuda()
         before = _launch_counts()
         ch, vi, en = mc_step.mc_step(vc, kc, P)

@@ -131,6 +131,15 @@ def test_kernel_constants_match_the_ring():
                                           telemetry.N_FEATURES)
 
 
+def test_the_cached_ramp_is_linspace_bit_for_bit():
+    fresh = torch.linspace(0.0, 1.0, 16)
+    got = k4.ramp("cpu")
+    assert got.dtype == fresh.dtype and got.shape == (16,)
+    assert torch.equal(got.view(torch.int32), fresh.view(torch.int32))
+    # made once a device and reused
+    assert k4.ramp(torch.device("cpu")) is got
+
+
 def test_cpu_path_is_the_plain_version():
     counts = (k4.synthetic_windows.launches, mlp_train_partials.launches,
               mlp_sgd_apply.launches)
@@ -163,8 +172,10 @@ def test_sgd_apply_plain_reduces_and_updates():
 # ---- on the card (skip without CUDA) --------------------------------
 
 # as chip_smoke.py: the main path's batches, and edge and bulk sizes;
-# K2a at 65 and 128 has partial tiles and several entry slices a tile
-K4_BATCHES = (1, 7, 16, 64, 249, 256, 2048, 65537)
+# K4 at odd batches has a half-filled last warp, and below or just past a
+# multiple of 8 a partial last block; K2a at 65 and 128 has partial
+# tiles and several entry slices a tile
+K4_BATCHES = (1, 2, 3, 7, 15, 16, 17, 64, 249, 255, 256, 257, 2048, 65537)
 K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
 QUALITY_SEEDS = (0, 1, 2, 3, 4)
 
@@ -190,6 +201,10 @@ def test_synthetic_kernel_equals_plain_on_cuda(batch):
         torch.cuda.synchronize()
         assert k4.synthetic_windows.launches == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the kernel's ramp, cached a device, is torch.linspace's own
+    assert torch.equal(k4.ramp("cuda").view(torch.int32),
+                       torch.linspace(0.0, 1.0, 16, device="cuda")
+                       .view(torch.int32))
 
 
 @pytest.mark.cuda
