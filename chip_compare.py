@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Hold K1, K2a, K4 and K5, and the paths that run them, to those of
-another tree (a parent commit unpacked with `git archive`) on one CUDA
-card.
+"""Hold K1, K2a, K4, K5, K6 and K7, and the paths that run them, to
+those of another tree (a parent commit unpacked with `git archive`) on
+one CUDA card.
 
     python3 chip_compare.py PARENT_TREE
 
@@ -18,16 +18,19 @@ come from this tree.  In order:
      below (with this tree's K1 crossover and a row either side), four
      kinds of input, two sets of weights and, for K2a, three kinds of
      labels (zeros x seed-0 weights is the z = 0 tie); K4 on the draws
-     of seeds 0-2 at chip_smoke.py's batches and 65,537; K5 on the
-     states of all six configs (P = 3 and 4) under each knob set at
+     of seeds 0-2 at chip_smoke.py's batches and 65,537; K5 and K6 on
+     the states of all six configs (P = 3 and 4) under each knob set at
      chip_smoke.py's edge batches, and at 65,537 rows for one config of
-     each P.  Every input and every output is reduced to the sha256 of
+     each P, and K7 (mc_dedup's keep and order) on each case's own K5
+     output.  Every input and every output is reduced to the sha256 of
      its bytes; the inputs must agree and so must the outputs, bit for
      bit;
   2. each kernel alone, a process a turn (parent, change, change,
      parent, parent, change), CUDA events: K1 at the batches the paths
-     give it and at bulk, K2a, K4 at 249, 256 and 65,536 rows and K5 at
-     the probe's chunk and 65,536 rows;
+     give it and at bulk, K2a, K4 at 249, 256 and 65,536 rows, K5 and K6
+     at the probe's chunk and 65,536 rows, and K7 on the children of
+     those (34,816 and 2,228,224 rows): the whole mc_dedup, its hash
+     kernel (mc_sort_keys) and the stable torch.sort alone;
   3. the paths in twelve turns (parent, change, change, parent, ... and
      the same reversed), a process a run: the wall of evaluate(n_traces=
      60, seed=7), of train() and of the probe's explore at depth 5 and
@@ -77,8 +80,8 @@ K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
 K1_TIMED = (1, 64, 374, 2048, 65536)
 K2_TIMED = (256, 65536)
 K4_TIMED = (249, 256, 65536)
-K5_TIMED = (MC_CHUNK, 65536)
-BULK_ROWS = 65537                # K4's and K5's odd bulk batch
+K5_TIMED = (MC_CHUNK, 65536)     # K5-K7's states (K7: their children)
+BULK_ROWS = 65537                # K4's to K7's odd bulk batch
 K5_BULK_CONFIGS = ("deaths3", "promote")    # P = 3 and 4
 PROBE_DEPTHS = (5, 7)
 EVALUATE_REPEATS = 5             # evaluate() runs a process, each timed
@@ -132,7 +135,7 @@ def side_bits(k1_batches) -> dict:
                             sha(x, y, *w),
                             sha(mlp_train_partials(x, y, *w))]
     out.update(side_bits_k4(dev))
-    out.update(side_bits_k5(dev))
+    out.update(side_bits_mc(dev))
     return out
 
 
@@ -154,8 +157,10 @@ def side_bits_k4(dev) -> dict:
     return out
 
 
-def side_bits_k5(dev) -> dict:
-    from manatee_tpu_torch.kernels.mc_step import mc_step
+def side_bits_mc(dev) -> dict:
+    """K5 and K6 on every config's states, K7 on each K5 output."""
+    from manatee_tpu_torch.kernels.mc_dedup import mc_dedup
+    from manatee_tpu_torch.kernels.mc_step import mc_liveness, mc_step
     from manatee_tpu_torch.state.modelcheck import CONFIGS
 
     out = {}
@@ -166,8 +171,15 @@ def side_bits_k5(dev) -> dict:
             bulk = (BULK_ROWS,) if name in K5_BULK_CONFIGS and not kw else ()
             for batch in (*MC_EDGE, *bulk):
                 vs = tile_rows(rows, batch).to(dev)
-                out["K5 %s %s B=%d" % (name, sorted(kw), batch)] = [
-                    sha(vs, knobs), sha(*mc_step(vs, knobs, P))]
+                case = "%s %s B=%d" % (name, sorted(kw), batch)
+                children = mc_step(vs, knobs, P)
+                out["K5 " + case] = [sha(vs, knobs), sha(*children)]
+                out["K6 " + case] = [sha(vs, knobs),
+                                     sha(mc_liveness(vs, knobs, P))]
+                flat = children[0].view(-1, children[0].shape[-1])
+                valid = children[2].reshape(-1)
+                out["K7 " + case] = [sha(flat, valid),
+                                     sha(*mc_dedup(flat, valid))]
     return out
 
 
@@ -192,16 +204,18 @@ def side_kernels() -> dict:
                      (torch.rand(batch, generator=g, device=dev) > 0.5)
                      .float(), *w) for _ in range(n)]
             out["K2a"][batch] = device_ms(mlp_train_partials, args)
-    out.update(side_kernels_k4_k5(dev, g))
+    out.update(side_kernels_k4_k7(dev, g))
     return out
 
 
-def side_kernels_k4_k5(dev, g) -> dict:
+def side_kernels_k4_k7(dev, g) -> dict:
     from manatee_tpu_torch.health.predictor import synthetic_draws
-    from manatee_tpu_torch.kernels.mc_step import mc_step
+    from manatee_tpu_torch.kernels.mc_dedup import mc_dedup, mc_sort_keys
+    from manatee_tpu_torch.kernels.mc_step import mc_liveness, mc_step
     from manatee_tpu_torch.kernels.synthetic_batch import synthetic_windows
 
-    out = {"K4": {}, "K5": {}}
+    out = {"K4": {}, "K5": {}, "K6": {}, "K7": {}, "K7_hash": {},
+           "K7_sort": {}}
     for batch in K4_TIMED:
         n = max(1, min(8, COLD_BYTES // (batch * 680)))
         out["K4"][batch] = device_ms(synthetic_windows, [
@@ -211,8 +225,18 @@ def side_kernels_k4_k5(dev, g) -> dict:
     for batch in K5_TIMED:
         # at 65,536 rows a launch takes milliseconds: fewer samples
         reps = dict(reps=7, inner=5) if batch > MC_CHUNK else {}
-        out["K5"][batch] = device_ms(
-            mc_step, [(tile_rows(rows, batch).to(dev), knobs, P)], **reps)
+        vs = tile_rows(rows, batch).to(dev)
+        out["K5"][batch] = device_ms(mc_step, [(vs, knobs, P)], **reps)
+        out["K6"][batch] = device_ms(mc_liveness, [(vs, knobs, P)], **reps)
+        ch, _vi, en = mc_step(vs, knobs, P)
+        flat, valid = ch.view(-1, ch.shape[-1]), en.reshape(-1)
+        out["K7"][batch] = device_ms(mc_dedup, [(flat, valid)], **reps)
+        out["K7_hash"][batch] = device_ms(mc_sort_keys, [(flat, valid)],
+                                          **reps)
+        keys = mc_sort_keys(flat, valid)
+        out["K7_sort"][batch] = device_ms(
+            lambda k: torch.sort(k, stable=True), [(keys,)], **reps)
+        del ch, flat, valid, keys
     return out
 
 
@@ -321,9 +345,12 @@ def bit_identity(parent: Path) -> dict:
             "K2a_launches_equal": sum(c.startswith("K2a") for c in got),
             "K4_launches_equal": sum(c.startswith("K4") for c in got),
             "K5_launches_equal": sum(c.startswith("K5") for c in got),
+            "K6_launches_equal": sum(c.startswith("K6") for c in got),
+            "K7_launches_equal": sum(c.startswith("K7") for c in got),
             "K1_batches": k1_batches, "K2a_batches": K2_BATCHES,
             "K4_batches": sorted({*K4_BATCHES, BULK_ROWS}),
-            "K5_batches": MC_EDGE, "K5_bulk": [BULK_ROWS, K5_BULK_CONFIGS]}
+            "K5_K6_K7_batches": MC_EDGE,
+            "K5_K6_K7_bulk": [BULK_ROWS, K5_BULK_CONFIGS]}
 
 
 def kernel_turns(parent: Path) -> dict:

@@ -9,7 +9,8 @@ phase catches its own failure:
 
   a. the card's name and power limit, as nvidia-smi reports them;
   b. build every kernel from the sources (nvcc, sm_90a, one process per
-     source, all started together);
+     source, all started together), with ptxas's registers, stack and
+     spills of K6 and K7;
   c. K1 against its plain PyTorch version on the card, TF32 off, over
      the batch sizes below, the crossover between its two launch shapes
      and a row either side, and every batch the serving path gives it,
@@ -47,7 +48,10 @@ phase catches its own failure:
   k. the model checker's kernels K5, K6 and K7 against their plain
      versions, equal element for element, on the states of all six
      configs (P = 3 and 4) under each knob set (every mutation) at the
-     edge batches below, which leave a partial last K5 block;
+     edge batches below, which leave a partial last K5 block and give K6
+     the rows K8 gives a shard; K7 also on a chunk of one state, on
+     invalid rows byte-equal to valid ones and on a forced hash
+     collision between real states;
   l. the model checker's main path, launch counts set to 0 just before
      it: the probe (mc_array.main: promote, chunk 1024, cold depth 2,
      depth 5 = 2,763 states, depth 7 = 21,038 states) on the card, every
@@ -56,7 +60,9 @@ phase catches its own failure:
      plain versions' on the CPU; differential against the oracle for all
      six configs at depth 5 and the four mutation cases; the users'
      sweep (`make modelcheck-jax`: every config at depth 8) through the
-     CLI with --engine torch;
+     CLI with --engine torch; then, for the probe's depth-5 and depth-7
+     runs, the rounds each K6 row runs, K7's valid and equal-key rows
+     and the launches;
   p. (run after l) K8, the sharded engine, on the card, launch counts
      set to 0 just before it: the probe configuration (promote, chunk
      1024, depth 5 and 7) over 2 and 4 shards of one card and over every
@@ -82,8 +88,10 @@ phase catches its own failure:
      65,536 in both launch shapes; K2a's bound counts its double sums at
      the fp64 rate; K4 at 249, 256 and 65,536; K5-K7 at chunk 1024 and
      at 65,536 rows of real frontier states, K7 with the sort's time
-     apart; K8 over 1, 2 and 4 shards at both sizes, with the gather's
-     time apart);
+     apart, K6 also at K8's 256 and 512 rows and in every launch shape
+     of K6_SHAPES (each built from mc_array.cu with its two constants
+     replaced, held to the committed shape's bits); K8 over 1, 2 and 4
+     shards at both sizes, with the gather's time apart);
   n. one JSON line describing every kernel, K1-K8;
   o. last line: {"ok": true, "device": {...}}.
 
@@ -94,7 +102,9 @@ package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -527,8 +537,8 @@ def slice_parity(dev) -> float:
 MC_CONFIG = "promote"            # the probe's config (P = 4)
 MC_CHUNK = 1024                  # the probe's chunk
 # edge batches of K5-K7: with a partial last K5 block (1, 3, 5, 7, 1023,
-# 1025) and the probe's chunk
-MC_EDGE = (1, 3, 5, 7, 256, 1023, 1024, 1025)
+# 1025), the probe's chunk and its blocks over 4 and 2 shards (K8)
+MC_EDGE = (1, 3, 5, 7, 256, 512, 1023, 1024, 1025)
 MC_BULK = 65536                  # rows of real frontier states, for timing
 MC_SWEEP_DEPTH = 8               # `make modelcheck-jax`'s depth
 # promote's states at depth 5 and 7 (MULTICHIP_modelcheck.json)
@@ -653,7 +663,61 @@ def check_mc_edges(dev) -> int:
     torch.cuda.synchronize()
     print("K5/K6/K7 vs plain: equal on %d batches (6 configs x %d knob sets "
           "x B=%s)" % (n, len(MC_KNOB_SETS), MC_EDGE))
-    return n
+    return n + check_k7_inputs(dev)
+
+
+def collision_row(row: torch.Tensor) -> torch.Tensor:
+    """Another row with the same 32-bit key as *row*: +1 in column 0 and
+    -w0 / w1 (mod 2**32) in column 1, w1 odd."""
+    from manatee_tpu_torch.kernels import mc_dedup
+
+    w = mc_dedup.hash_weights(2).tolist()
+    other = row.clone()
+    other[0] += 1
+    delta = (int(row[1]) - w[0] * pow(w[1], -1, 2**32)) % 2**32
+    other[1] = delta - 2**32 if delta >= 2**31 else delta
+    return other
+
+
+def check_k7_inputs(dev) -> int:
+    """K7 against its plain version where the keep kernel's shortcut is
+    tested hardest: every valid row one state (a full compare at every
+    position), invalid rows byte-equal to valid ones, and a forced hash
+    collision between real states, at the probe's flattened chunk."""
+    from manatee_tpu_torch.kernels import mc_dedup
+
+    rows, _knobs, _P = mc_levels(MC_CONFIG, {})
+    n = MC_CHUNK * 34                     # the probe's children a chunk
+    g = torch.Generator().manual_seed(3)
+    a = rows[-1]
+    b = collision_row(a)
+    keys = mc_dedup.row_keys_plain(torch.stack([a, b]))
+    require(not torch.equal(a, b) and int(keys[0]) == int(keys[1]),
+            "the collision rows do not collide")
+    half = tile_rows(rows, n // 2)
+    cases = {
+        "one state": (a.repeat(n, 1), torch.ones(n, dtype=torch.bool)),
+        "one state, some invalid": (
+            a.repeat(n, 1), torch.rand(n, generator=g) < 0.5),
+        "invalid rows equal to valid": (
+            torch.cat([half, half]), torch.arange(n) < n // 2),
+        "collision": (
+            torch.stack([a, b])[torch.randint(0, 2, (n,), generator=g)],
+            torch.rand(n, generator=g) < 0.8),
+    }
+    for name, (flat, valid) in cases.items():
+        flat, valid = flat.contiguous().to(dev), valid.to(dev)
+        keep, order = mc_dedup.mc_dedup(flat, valid)
+        mc_check_call("K7", (flat, valid), (keep, order))
+        if name == "collision":
+            # a collision only splits a run: both states survive
+            kept = flat[order[keep]]
+            require(bool((kept == a.to(dev)).all(1).any())
+                    and bool((kept == b.to(dev)).all(1).any()),
+                    "K7 dropped a colliding state")
+    torch.cuda.synchronize()
+    print("K7 vs plain: equal on %s at %d rows" % (sorted(cases), n))
+    return len(cases)
 
 
 def mc_reset_counts() -> None:
@@ -803,6 +867,126 @@ def model_checker_path(dev) -> dict:
                 card7, c_card)
 
 
+def checker_counts(dev) -> dict:
+    """What the probe's depth-5 and depth-7 runs give K6 and K7, counted
+    on the card: the rounds of the fair schedule each liveness row runs
+    (the slowest row of a warp sets its time), the K7 rows that are
+    valid and those whose sort key equals their sorted predecessor's
+    (the pairs the keep kernel compares in full; a collision when the
+    rows differ), and each run's launches."""
+    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.state import canon
+    from manatee_tpu_torch.state import mc_array as ma
+    from manatee_tpu_torch.state.modelcheck import CONFIGS
+
+    out = {}
+    for depth in (5, 7):
+        rec = McRecorder()
+        mc_reset_counts()
+        with rec.on():
+            ma.explore_torch(CONFIGS[MC_CONFIG], depth=depth, chunk=MC_CHUNK,
+                             device=dev)
+        launches = mc_read_counts()
+        rounds = torch.cat([mc_step.rounds_plain(*args)
+                            for args, _bits in rec.calls["K6"]])
+        bits = torch.cat([b for _args, b in rec.calls["K6"]])
+        hist = torch.bincount(rounds, minlength=mc_step.MAX_ROUNDS + 1)
+        k7 = dict.fromkeys(("rows", "valid", "equal_key", "collisions"), 0)
+        for (flat, valid), (_keep, order) in rec.calls["K7"]:
+            skeys = mc_dedup.sort_keys_plain(flat, valid)[order]
+            same = torch.zeros_like(valid)
+            same[1:] = (skeys[1:] == skeys[:-1]) & (skeys[1:] >> 32 == 0)
+            rows = flat[order]
+            differ = torch.zeros_like(valid)
+            differ[1:] = (rows[1:] != rows[:-1]).any(1)
+            k7["rows"] += flat.shape[0]
+            k7["valid"] += int(valid.sum())
+            k7["equal_key"] += int(same.sum())
+            k7["collisions"] += int((same & differ).sum())
+        out[depth] = {
+            "k6_rows": int(rounds.numel()),
+            "k6_rounds": {str(r): int(n) for r, n in enumerate(hist.tolist())
+                          if n},
+            "k6_no_fixpoint": int(
+                (bits & canon.CATEGORY_BIT["no_fixpoint"] != 0).sum()),
+            "k7": k7, "launches": launches}
+        rec.calls = None
+    print(json.dumps({"checker_counts": out}))
+    return out
+
+
+# K6's launch shapes timed on the card: (rows a warp, warps a block)
+K6_SHAPES = ((1, 4), (2, 2), (4, 1), (8, 1), (16, 1), (32, 1))
+K6_CONSTANTS = ("kLiveRowsPerWarp", "kLiveWarps")
+
+
+def k6_shape() -> tuple:
+    """K6's (rows a warp, warps a block), as mc_array.cu fixes them."""
+    from manatee_tpu_torch.kernels import nvcc
+
+    src = (nvcc.CSRC / "mc_array.cu").read_text()
+    return tuple(int(re.search(r"constexpr int %s = (\d+);" % name,
+                               src).group(1)) for name in K6_CONSTANTS)
+
+
+def ptxas_summary(log: str, needle: str) -> dict:
+    """{kernel: registers, stack and spill bytes} from nvcc's -Xptxas -v
+    report, for each entry function whose name holds *needle*."""
+    out = {}
+    for m in re.finditer(
+            r"Function properties for (\S*%s\S*)\s+(\d+) bytes stack frame,"
+            r" (\d+) bytes spill stores, (\d+) bytes spill loads\s+"
+            r"ptxas info\s+: Used (\d+) registers" % needle, log):
+        out[m.group(1)] = {"registers": int(m.group(5)),
+                           "stack": int(m.group(2)),
+                           "spill_stores": int(m.group(3)),
+                           "spill_loads": int(m.group(4))}
+    return out
+
+
+def k6_shape_libraries(tmp: Path) -> dict:
+    """mc_array.cu built once for each shape of K6_SHAPES, the two
+    constants replaced in a copy of the source, one nvcc process a shape,
+    all started together: {shape: (ctypes library, ptxas summary)}."""
+    from manatee_tpu_torch.kernels import nvcc
+
+    src = (nvcc.CSRC / "mc_array.cu").read_text()
+    jobs = {}
+    for shape in K6_SHAPES:
+        text = src
+        for name, value in zip(K6_CONSTANTS, shape):
+            text, n = re.subn(r"constexpr int %s = \d+;" % name,
+                              "constexpr int %s = %d;" % (name, value), text)
+            require(n == 1, "%s not found in mc_array.cu" % name)
+        cu = tmp / ("mc_array_%dx%d.cu" % shape)
+        cu.write_text(text)
+        lib = cu.with_suffix(".so")
+        jobs[shape] = (lib, subprocess.Popen(
+            [nvcc._nvcc(), *nvcc.FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for shape, (lib, proc) in jobs.items():
+        log, _ = proc.communicate(timeout=600)
+        require(proc.returncode == 0, "K6 shape %s: nvcc failed:\n%s"
+                % (shape, log[-3000:]))
+        cdll = ctypes.CDLL(str(lib))
+        cdll.mc_liveness_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        cdll.mc_liveness_launch.restype = ctypes.c_int
+        libs[shape] = (cdll, ptxas_summary(log, "mc_liveness_kernel"))
+    return libs
+
+
+def k6_shape_launch(lib, vs, knobs, P):
+    """K6 of another shape's library: a comparison, not counted."""
+    bits = torch.empty((vs.shape[0],), dtype=torch.int32, device=vs.device)
+    err = lib.mc_liveness_launch(
+        vs.data_ptr(), knobs.data_ptr(), bits.data_ptr(), vs.shape[0], P,
+        vs.device.index, torch.cuda.current_stream(vs.device).cuda_stream)
+    require(err == 0, "K6 shape launch failed (%d)" % err)
+    return bits
+
+
 def mc_timing(frontier, dev, bw, flops) -> dict:
     """K5, K6 and K7 alone at the probe's chunk and at 65,536 rows of
     real frontier states, beside their plain versions, the sort and
@@ -816,6 +1000,33 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
     S = len(ma.slot_table(P))
     knobs = torch.from_numpy(ma.make_knobs(CONFIGS[MC_CONFIG])).to(dev)
     out = {"K5": {}, "K6": {}, "K7": {}}
+    shape = k6_shape()
+    with tempfile.TemporaryDirectory() as tmp:
+        shapes = k6_shape_libraries(Path(tmp))
+        # K8's rows a shard (4 and 2 shards), the chunk, the bulk batch
+        for batch in (MC_CHUNK // 4, MC_CHUNK // 2, MC_CHUNK, MC_BULK):
+            vs = tile_rows(frontier, batch)
+            kreps = dict(reps=7, inner=5) if batch > MC_CHUNK else {}
+            want = mc_step.mc_liveness(vs, knobs, P)
+            by_shape = {}
+            for sh, (lib, _) in shapes.items():
+                require(torch.equal(k6_shape_launch(lib, vs, knobs, P), want),
+                        "K6 shape %s differs at B=%d" % (sh, batch))
+                by_shape["%dx%d" % sh] = device_ms(
+                    lambda *a, lib=lib: k6_shape_launch(lib, *a),
+                    [(vs, knobs, P)], **kreps)
+            out["K6"][batch] = {
+                "shape": "%dx%d" % shape, "by_shape_ms": by_shape,
+                "ms": device_ms(mc_step.mc_liveness, [(vs, knobs, P)],
+                                **kreps),
+                **bound(batch * L.SIZE * 4 + batch * 4, 0, bw, flops)}
+        ptxas = {"%dx%d" % sh: summary for sh, (_, summary) in shapes.items()}
+        del shapes
+    print("K6 shape: %d rows a warp (%d lanes a row), %d warps a block "
+          "(mc_array.cu); every swept shape %s gives its bits at B=%s"
+          % (shape[0], 32 // shape[0], shape[1],
+             ["%dx%d" % sh for sh in K6_SHAPES], sorted(out["K6"])))
+    print(json.dumps({"K6_shape_ptxas": ptxas}))
     for batch in (MC_CHUNK, MC_BULK):
         vs = tile_rows(frontier, batch)
         # at 65,536 rows a call takes milliseconds: fewer samples
@@ -828,20 +1039,17 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
             "library_ms": None,
             **bound(batch * L.SIZE * 4 + batch * S * (L.SIZE * 4 + 4 + 1),
                     0, bw, 1.0)}
-        out["K6"][batch] = {
-            "ms": device_ms(mc_step.mc_liveness, [(vs, knobs, P)],
-                            **kreps),
-            "plain_ms": device_ms(mc_step.liveness_plain, [(vs, knobs, P)],
-                                  **reps),
-            "library_ms": None,
-            **bound(batch * L.SIZE * 4 + batch * 4, 0, bw, flops)}
+        out["K6"][batch].update(
+            plain_ms=device_ms(mc_step.liveness_plain, [(vs, knobs, P)],
+                               **reps),
+            library_ms=None)
         ch, _vi, en = mc_step.mc_step(vs, knobs, P)
         flat, valid = ch.view(-1, L.SIZE), en.reshape(-1)
         n = flat.shape[0]
         keys = mc_dedup.mc_sort_keys(flat, valid)
-        order = torch.sort(keys, stable=True).indices
+        skeys, order = torch.sort(keys, stable=True)
         hash_ms = device_ms(mc_dedup.mc_sort_keys, [(flat, valid)], **kreps)
-        keep_ms = device_ms(mc_dedup.mc_keep, [(flat, valid, order)],
+        keep_ms = device_ms(mc_dedup.mc_keep, [(flat, skeys, order)],
                             **kreps)
         sort_ms = device_ms(lambda k: torch.sort(k, stable=True), [(keys,)],
                             **kreps)
@@ -854,9 +1062,10 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
                                   **reps),
             "library_ms": sort_ms,
             "valid_rows": int(valid.sum()),
-            "compare_bytes": int(valid.sum()) * 2 * L.SIZE * 4,
+            "equal_key_rows": int(((skeys[1:] == skeys[:-1])
+                                   & (skeys[1:] >> 32 == 0)).sum()),
             **bound(n * L.SIZE * 4 + n + n + n * 8, 0, bw, flops)}
-        del ch, flat, valid, keys, order
+        del ch, flat, valid, keys, skeys, order
     return out
 
 
@@ -926,7 +1135,7 @@ def kernel_launches(dev) -> dict:
     knobs = torch.from_numpy(ma.make_knobs(cfg)).to(dev)
     ch, _vi, en = mc_step.mc_step(vs, knobs, P)
     flat, valid = ch.view(-1, ch.shape[-1]), en.reshape(-1)
-    order = torch.sort(mc_dedup.mc_sort_keys(flat, valid), stable=True).indices
+    skeys, order = torch.sort(mc_dedup.mc_sort_keys(flat, valid), stable=True)
     partials = k2.mlp_train_partials(x, y, *w)
     return {
         "K1": lambda: k1.mlp_forward(x, *w),
@@ -936,7 +1145,7 @@ def kernel_launches(dev) -> dict:
         "K5": lambda: mc_step.mc_step(vs, knobs, P),
         "K6": lambda: mc_step.mc_liveness(vs, knobs, P),
         "K7_hash": lambda: mc_dedup.mc_sort_keys(flat, valid),
-        "K7_keep": lambda: mc_dedup.mc_keep(flat, valid, order),
+        "K7_keep": lambda: mc_dedup.mc_keep(flat, skeys, order),
     }
 
 
@@ -1302,6 +1511,13 @@ def main() -> int:
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text().strip())
+    logs = {name: lib.with_suffix(".log") for name, lib in libs.items()}
+    logs = {name: log.read_text() if log.exists() else ""
+            for name, log in logs.items()}
+    print(json.dumps({"ptxas": {
+        kernel: ptxas_summary(logs[name], kernel) for name, kernel in (
+            ("mc_array", "mc_liveness_kernel"), ("mc_dedup", "mc_hash_kernel"),
+            ("mc_dedup", "mc_keep_kernel"))}}))
 
     # c. K1 vs plain, at the listed batches and every batch the serving
     # path gives the kernel (one per recorded trace)
@@ -1408,6 +1624,7 @@ def main() -> int:
     check_mc_edges(dev)
     checker, frontier, one_device7 = model_checker_path(dev)
     print(json.dumps({"checker_path": checker}))
+    checker_counts(dev)
 
     # p. K8 on the card, counts from 0; q. train()'s rank path
     sharded = sharded_checker(torch.device("cuda", 0), *one_device7)

@@ -22,7 +22,8 @@
 // bytes a state, with no arithmetic to speak of.  K5 reads B*SIZE*4
 // bytes and writes B*S*(SIZE+2)*4 (the children dominate: 24 KB a state
 // at P = 4), so bytes bound it; K6 reads B*SIZE*4 and writes B*4, and is
-// bound by its serial per-row work (up to 30 rounds of P evaluations).
+// held far above that by its serial per-row work (up to 30 rounds of P
+// evaluations, each a chain of dependent shared-memory reads).
 //
 // Design (these are exact int32 results, one differing element is a
 // wrong answer):
@@ -41,11 +42,24 @@
 //   rows at P = 4 (49,616 bytes) opts in to over 48 KB of dynamic shared
 //   memory.  R = 2: of 1 to 8 rows a block, timed on an H100, 2 to 4
 //   were the fastest at chunk 1024 and at 65,536 rows (PERF.md).
-// * K6: one thread per row on a local copy.  A vmapped lax.while_loop
-//   freezes a row once its own condition is false, so the thread's loop
-//   stops at `done` or after 30 rounds; within a round, peer i's
+// * K6: kLiveRowsPerWarp rows a warp, kLiveWarps warps a block (both
+//   compile-time constants, chosen from a sweep of six shapes on the
+//   card; PERF.md).  A row's work is serial: within a round, peer i's
 //   alive-and-reachable bit is read after peers < i were synced and
-//   evaluated (:1097-1105).  It reuses K5's eval.
+//   evaluated (:1097-1105), so nothing evaluates a row's peers in
+//   parallel.  The parallelism is across rows and in a row's full-width
+//   work.  The block stages its rows in shared memory by one coalesced
+//   sweep, two buffers a row (the state and the one an evaluation
+//   writes) at the odd pitch SIZE | 1, rather than two 176-int arrays in
+//   each thread's local memory.  The 32 / kLiveRowsPerWarp lanes of a
+//   row deliver (view_sync) together and copy the state into the other
+//   buffer before each evaluation (eval_peer needs its output to hold a
+//   copy of its input); the row's first lane runs K5's eval_peer and
+//   predicates, and the buffers swap: one copy an evaluation, spread
+//   over the lanes.  A vmapped lax.while_loop freezes a row once its own
+//   condition is false, so a row stops at `done` or after 30 rounds; a
+//   warp runs while any of its rows does (the probe's rows run 1 to 3
+//   rounds, so rows sharing a warp lose little to each other).
 // * Every state-block write goes through pack_sb, the canonical form
 //   (NONE-padded tails, promote fields zeroed when absent): the dedup
 //   compares raw bytes.  A NONE (-1) index is clipped to 0 before it
@@ -90,7 +104,8 @@ constexpr int B_CHAIN = 1 << 15;
 constexpr int MAX_ROUNDS = 30;
 constexpr int kStepRows = 2;        // K5: rows (x S threads) a block
 constexpr int kKnobWords = 16;      // K5: shared words of the knobs
-constexpr int kLiveThreads = 64;    // K6: rows (threads) per block
+constexpr int kLiveRowsPerWarp = 2; // K6: rows a warp (32 / it lanes a row)
+constexpr int kLiveWarps = 2;       // K6: warps a block
 
 // The int32 encoding's offsets (mc_array.py Layout).
 template <int P>
@@ -188,7 +203,7 @@ static_assert(slot_of_is_the_table<3>() && slot_of_is_the_table<4>(),
               "slot_of follows slot_table(P)'s order");
 
 // ---------------------------------------------------------------------------
-// helpers on one state (an int array: local memory in K6, shared in K5)
+// helpers on one state (an int array in shared memory, in K5 and K6)
 
 template <int P>
 struct SB {
@@ -230,14 +245,26 @@ __device__ __forceinline__ int index_of(const int* ids, int n, int j) {
 }
 
 // stable compaction into out (kept entries in order, NONE tail); out
-// must not alias vals (_compact)
+// must not alias vals (_compact).  Entry m is the kept value of rank m,
+// found by selects: no index is computed at run time, so out can stay in
+// registers.  (Selecting a run-time index the same way in at() and
+// member_at() gave wrong bits from ptxas -O1 to -O3 and right ones at
+// -O0 on the H100 toolchain, PERF.md: those stay indexed, in the stack.)
 template <int P>
 __device__ __forceinline__ int compact(const int* vals, const bool* keep,
                                        int* out) {
   int n = 0;
-  for (int k = 0; k < P; ++k)
-    if (keep[k]) out[n++] = vals[k];
-  for (int k = n; k < P; ++k) out[k] = NONE;
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    int r = NONE, rank = 0;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      r = keep[k] && rank == m ? vals[k] : r;
+      rank += keep[k] ? 1 : 0;
+    }
+    out[m] = r;
+    n = rank;
+  }
   return n;
 }
 
@@ -286,15 +313,19 @@ __device__ void pack_sb(int* v, int base, const SB<P>& d) {
 }
 
 // view := store, view actives := store actives, ver_current := 1,
-// evaled := 0 (_view_sync)
+// evaled := 0 (_view_sync).  Lane g of a group of G lanes that share v
+// copies every G-th word (K6); one thread alone takes the defaults
 template <int P>
-__device__ void view_sync(int* v, int i) {
+__device__ void view_sync(int* v, int i, int g = 0, int G = 1) {
   using L = Lay<P>;
   const int b = L::pbase(i);
-  for (int k = 0; k < L::SB_SIZE; ++k) v[b + L::PB_VSB + k] = v[L::G_SB + k];
-  for (int k = 0; k <= P; ++k) v[b + L::PB_VACT + k] = v[L::G_ACT + k];
-  v[b + L::PB_VERCUR] = 1;
-  v[b + L::PB_EVALED] = 0;
+  for (int k = g; k < L::SB_SIZE; k += G)
+    v[b + L::PB_VSB + k] = v[L::G_SB + k];
+  for (int k = g; k <= P; k += G) v[b + L::PB_VACT + k] = v[L::G_ACT + k];
+  if (g == 0) {
+    v[b + L::PB_VERCUR] = 1;
+    v[b + L::PB_EVALED] = 0;
+  }
 }
 
 template <int P>
@@ -548,8 +579,8 @@ __device__ void eval_peer(const int* v, int* out, int i, const int* kn,
   for (int k = 0; k < P; ++k)
     keep[k] = k < vw.asy_n && (new_sync == NONE || vw.asy[k] != new_sync);
   tn.asy_n = compact<P>(vw.asy, keep, tn.asy);
-  for (int k = 0; k < P; ++k) tn.dep[k] = vw.dep[k];
-  tn.dep[clip<P>(vw.dep_n)] = vw.prim;        // a full list: the last slot
+  for (int k = 0; k < P; ++k)                 // a full list: the last slot
+    tn.dep[k] = k == clip<P>(vw.dep_n) ? vw.prim : vw.dep[k];
   tn.dep_n = vw.dep_n + 1;
   tn.frozen = 0;                              // a takeover is a fresh dict
   tn.p_has = 0;
@@ -563,7 +594,7 @@ __device__ void eval_peer(const int* v, int* out, int i, const int* kn,
   const bool want_write = prim_w || w_take;
   const bool succ = want_write && !part && ver_cur;
   const bool conflict = want_write && !part && !ver_cur;
-  const SB<P>& nsb = is_sync ? tn : pn;
+  const SB<P> nsb = is_sync ? tn : pn;
   viol = write_viol<P>(vw, nsb, succ);
   if (succ) {
     pack_sb<P>(out, L::G_SB, nsb);
@@ -858,48 +889,106 @@ mc_step_kernel(const int* __restrict__ vs, const int* __restrict__ knobs,
   for (int t = head + 4 * quads + tid; t < n; t += nthreads) dst[t] = kid(t);
 }
 
+// K6's shared memory: the knobs, then each row's two state buffers (the
+// current state and the one an evaluation writes) at the odd pitch
+// SIZE | 1, so that the lanes of a warp at one offset of their own rows
+// fall in different banks.
 template <int P>
-__global__ void __launch_bounds__(kLiveThreads)
+struct LiveSmem {
+  static constexpr int PITCH = Lay<P>::SIZE | 1;
+  static constexpr int ROWS = kLiveWarps * kLiveRowsPerWarp;
+  static constexpr int BYTES = 4 * (kKnobWords + 2 * ROWS * PITCH);
+};
+
+static_assert(32 % kLiveRowsPerWarp == 0 && LiveSmem<4>::BYTES <= 48 * 1024,
+              "K6's rows split a warp evenly, in static shared memory");
+
+template <int P>
+__global__ void __launch_bounds__(32 * kLiveWarps)
 mc_liveness_kernel(const int* __restrict__ vs, const int* __restrict__ knobs,
                    int* __restrict__ bits, int batch) {
   using L = Lay<P>;
-  constexpr int SIZE = L::SIZE;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= batch) return;
-  int kn[KNOBS];
-  for (int k = 0; k < KNOBS; ++k) kn[k] = knobs[k];
-  int v[SIZE], t[SIZE];
-  for (int k = 0; k < SIZE; ++k) v[k] = vs[row * SIZE + k];
+  constexpr int SIZE = L::SIZE, PITCH = LiveSmem<P>::PITCH;
+  constexpr int ROWS = LiveSmem<P>::ROWS;
+  constexpr int G = 32 / kLiveRowsPerWarp;   // lanes a row
+  constexpr unsigned kFull = 0xffffffffu;
+  __shared__ int kn[kKnobWords];
+  __shared__ int buf[2 * ROWS * PITCH];
+  const int tid = threadIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.x) * ROWS;
+  const int nrows = static_cast<int>(
+      min(static_cast<long long>(ROWS), batch - row0));
+
+  // the block's rows, one contiguous range of vs: a coalesced sweep
+  for (int x = tid; x < nrows * SIZE; x += 32 * kLiveWarps)
+    buf[(x / SIZE) * PITCH + x % SIZE] = vs[row0 * SIZE + x];
+  if (tid < KNOBS) kn[tid] = knobs[tid];
+  __syncthreads();
+
+  // this lane's row, and its place in the row's group of G lanes: the
+  // group copies, its first lane (the leader) runs the serial work
+  const int r = tid / G, g = tid % G;
+  const bool leader = g == 0;
+  int* v = buf + r * PITCH;
+  int* t = buf + (ROWS + r) * PITCH;
 
   // replication catches up under a fair schedule: every alive peer
   // (partitioned included) reaches the store's initWal
-  const int iw = v[L::G_SB + L::SB_IW];
-  for (int i = 0; i < P; ++i) {
-    const int b = L::pbase(i);
-    if (v[b + L::PB_ALIVE] == 1 && v[b + L::PB_X] < iw) v[b + L::PB_X] = iw;
+  if (leader && r < nrows) {
+    const int iw = v[L::G_SB + L::SB_IW];
+    for (int i = 0; i < P; ++i) {
+      const int b = L::pbase(i);
+      if (v[b + L::PB_ALIVE] == 1 && v[b + L::PB_X] < iw) v[b + L::PB_X] = iw;
+    }
   }
+  __syncwarp();
   int viol = 0;
-  bool done = false;
-  for (int r = 0; r < MAX_ROUNDS && !done; ++r) {
-    for (int i = 0; i < P; ++i)
-      if (anp<P>(v, i)) view_sync<P>(v, i);
+  bool done = r >= nrows;               // alike in every lane of a group
+  // a row stops at done or after MAX_ROUNDS, as the vmapped while_loop
+  // freezes it; the warp goes on while any of its rows does
+  for (int round = 0; round < MAX_ROUNDS && __any_sync(kFull, !done);
+       ++round) {
+    // deliver to every alive, reachable peer, the group's lanes together
+    // (view_sync writes no peer's alive or partition word)
+    if (!done)
+      for (int i = 0; i < P; ++i)
+        if (anp<P>(v, i)) view_sync<P>(v, i, g, G);
+    __syncwarp();
     bool wrote_any = false;
     for (int i = 0; i < P; ++i) {
-      if (!anp<P>(v, i)) continue;    // read after peers < i evaluated
-      for (int k = 0; k < SIZE; ++k) t[k] = v[k];
-      int vi;
-      bool wrote;
-      eval_peer<P>(v, t, i, kn, vi, wrote);
-      for (int k = 0; k < SIZE; ++k) v[k] = t[k];
-      viol |= vi;
-      wrote_any |= wrote;
+      // read after peers < i evaluated; eval_peer needs its output to
+      // hold a copy of its input: the group copies v to t, the leader
+      // evaluates into t, and t becomes the state (one copy an
+      // evaluation, the buffers swapping)
+      const bool go = !done && anp<P>(v, i);
+      if (go)
+        for (int k = g; k < SIZE; k += G) t[k] = v[k];
+      __syncwarp();
+      if (go && leader) {
+        int vi;
+        bool wrote;
+        eval_peer<P>(v, t, i, kn, vi, wrote);
+        viol |= vi;
+        wrote_any |= wrote;
+      }
+      __syncwarp();
+      if (go) {
+        int* const old = v;
+        v = t;
+        t = old;
+      }
     }
-    bool cur = true;
-    for (int i = 0; i < P; ++i) cur &= !anp<P>(v, i) || view_current<P>(v, i);
-    done = !wrote_any && cur;
-  }
-  bits[row] = viol | (done ? predicates<P>(v) : B_NO_FIXPOINT);
+    wrote_any = __shfl_sync(kFull, wrote_any, tid & 31 & ~(G - 1));
+    if (!done) {
+      bool cur = true;
+      for (int i = 0; i < P; ++i)
+        cur &= !anp<P>(v, i) || view_current<P>(v, i);
+      done = !wrote_any && cur;
+    }
+    __syncwarp();                       // the group read v before the
+  }                                     // leader writes it again
+  if (leader && r < nrows)
+    bits[row0 + r] = viol | (done ? predicates<P>(v) : B_NO_FIXPOINT);
 }
 
 // K5 over kStepRows rows a block.  A kernel that takes more than 48 KB
@@ -925,9 +1014,10 @@ int launch_step(const int* vs, const int* knobs, int* children, int* viols,
 template <int P>
 int launch_liveness(const int* vs, const int* knobs, int* bits, int batch,
                     cudaStream_t stream) {
+  constexpr int rows = LiveSmem<P>::ROWS;
   const unsigned blocks = static_cast<unsigned>(
-      (static_cast<long long>(batch) + kLiveThreads - 1) / kLiveThreads);
-  mc_liveness_kernel<P><<<blocks, kLiveThreads, 0, stream>>>(
+      (static_cast<long long>(batch) + rows - 1) / rows);
+  mc_liveness_kernel<P><<<blocks, 32 * kLiveWarps, 0, stream>>>(
       vs, knobs, bits, batch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,13 @@ can never drop a state.
 ``mc_dedup`` runs two CUDA kernels of ``csrc/mc_dedup.cu`` around one
 stable ``torch.sort``: the hash kernel writes the sort key
 ``(!valid) << 32 | key`` as int64 (one stable sort on it gives the
-reference's two stable argsorts' order), and the keep kernel compares
-each sorted row with the one before it.  The sort is the one step left
-to a library call, as the reference leaves it to XLA.  ``dedup_plain``
-computes the same with torch operators; torch has no uint32 multiply, so
-the key is built from 16-bit halves in int64, exact and without
-overflow.
+reference's two stable argsorts' order), and the keep kernel reads the
+sorted keys and compares a sorted row with the one before it only where
+their keys are equal (a different key proves different rows).  The sort
+is the one step left to a library call, as the reference leaves it to
+XLA.  ``dedup_plain`` computes the same with torch operators; torch has
+no uint32 multiply, so the key is built from 16-bit halves in int64,
+exact and without overflow.
 """
 
 from __future__ import annotations
@@ -94,14 +95,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(kernel: str, flat, valid) -> torch.device:
+def _check(kernel: str, flat, *specs) -> torch.device:
+    """check_inputs of (N, W) int32 rows and, for each (name, tensor,
+    dtype) of *specs*, an (N,) tensor of that dtype."""
     n = flat.shape[0] if flat.dim() == 2 else -1
     if not 0 <= n <= _MAX_ROWS:
         raise ValueError("rows must have shape (N, W) with N < 2**31, "
                          "not %s" % (tuple(flat.shape),))
     return check_inputs(kernel, [
         ("rows", flat, (n, flat.shape[1]), torch.int32),
-        ("valid", valid, (n,), torch.bool)])
+        *((name, t, (n,), dtype) for name, t, dtype in specs)])
 
 
 def _raise_on(lib, err: int, kernel: str) -> None:
@@ -113,7 +116,7 @@ def _raise_on(lib, err: int, kernel: str) -> None:
 def mc_sort_keys(flat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The hash kernel: (N, W) int32 and (N,) bool on one card -> (N,)
     int64 sort keys.  Adds one to ``mc_sort_keys.launches``."""
-    device = _check("mc_sort_keys", flat, valid)
+    device = _check("mc_sort_keys", flat, ("valid", valid, torch.bool))
     n, w = flat.shape
     keys = torch.empty((n,), dtype=torch.int64, device=device)
     if n == 0:
@@ -127,20 +130,21 @@ def mc_sort_keys(flat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return keys
 
 
-def mc_keep(flat: torch.Tensor, valid: torch.Tensor,
+def mc_keep(flat: torch.Tensor, skeys: torch.Tensor,
             order: torch.Tensor) -> torch.Tensor:
-    """The keep kernel over a sorted order ((N,) int64 on the same
-    card) -> (N,) bool.  Adds one to ``mc_keep.launches``."""
-    device = _check("mc_keep", flat, valid)
+    """The keep kernel over the sorted order: ``skeys`` the hash
+    kernel's keys in stable ascending order and ``order`` the sort's
+    indices, (N,) int64 each on the card of ``flat`` -> (N,) bool.  Adds
+    one to ``mc_keep.launches``."""
+    device = _check("mc_keep", flat, ("sorted keys", skeys, torch.int64),
+                    ("order", order, torch.int64))
     n, w = flat.shape
-    check_inputs("mc_keep", [("order", order, (n,), torch.int64),
-                             ("rows", flat, (n, w), torch.int32)])
     keep = torch.empty((n,), dtype=torch.bool, device=device)
     if n == 0:
         return keep
     lib = _library()
     _raise_on(lib, lib.mc_keep_launch(
-        flat.data_ptr(), valid.data_ptr(), order.data_ptr(),
+        flat.data_ptr(), skeys.data_ptr(), order.data_ptr(),
         keep.data_ptr(), n, w, device.index,
         torch.cuda.current_stream(device).cuda_stream), "mc_keep")
     mc_keep.launches += 1
@@ -149,11 +153,11 @@ def mc_keep(flat: torch.Tensor, valid: torch.Tensor,
 
 def mc_dedup(flat: torch.Tensor, valid: torch.Tensor):
     """K7 on the current stream: hash kernel, one stable torch.sort,
-    keep kernel.  -> keep (N,) bool, order (N,) int64.  The launches are
-    counted where they happen, in ``mc_sort_keys`` and ``mc_keep``."""
-    keys = mc_sort_keys(flat, valid)
-    order = torch.sort(keys, stable=True).indices
-    return mc_keep(flat, valid, order), order
+    keep kernel on the sorted keys.  -> keep (N,) bool, order (N,)
+    int64.  The launches are counted where they happen, in
+    ``mc_sort_keys`` and ``mc_keep``."""
+    skeys, order = torch.sort(mc_sort_keys(flat, valid), stable=True)
+    return mc_keep(flat, skeys, order), order
 
 
 mc_sort_keys.launches = 0

@@ -711,16 +711,14 @@ def _predicates(L, v):
             | _w(chain, _BIT["chain"], 0))
 
 
-def liveness_plain(vs: torch.Tensor, knobs, P: int) -> torch.Tensor:
-    """(B, SIZE) int32 states -> (B,) int32 liveness violation bits (and
-    any write-legality bits the settle evaluations tripped).
+def _settle(L, vs: torch.Tensor, kn):
+    """Catch-up, then the fair schedule to fixpoint on a copy of vs:
+    (states, violation bits, done, rounds run), a row each.
 
     The reference vmaps a lax.while_loop: a row stops iterating once its
     own schedule is done (or after 30 rounds) while the others go on.
     Here each round runs on the rows still going, and only those are
     updated."""
-    L = _peers_of(vs, P)
-    kn = _knob_list(knobs)
     v = vs.clone()
     iw = v[:, L.G_SB + L.SB_IW]
     for i in range(L.P):                # catch-up of every alive peer
@@ -729,6 +727,7 @@ def liveness_plain(vs: torch.Tensor, knobs, P: int) -> torch.Tensor:
                      iw, v[:, c])
     viol = torch.zeros(v.shape[0], dtype=torch.int32, device=v.device)
     done = torch.zeros(v.shape[0], dtype=torch.bool, device=v.device)
+    rounds = torch.zeros(v.shape[0], dtype=torch.int64, device=v.device)
     for _ in range(MAX_ROUNDS):
         going = (~done).nonzero()[:, 0]
         if going.numel() == 0:
@@ -738,8 +737,23 @@ def liveness_plain(vs: torch.Tensor, knobs, P: int) -> torch.Tensor:
         v[going] = sub
         viol[going] = viol[going] | viol_r
         done[going] = done_r
+        rounds[going] += 1
+    return v, viol, done, rounds
+
+
+def liveness_plain(vs: torch.Tensor, knobs, P: int) -> torch.Tensor:
+    """(B, SIZE) int32 states -> (B,) int32 liveness violation bits (and
+    any write-legality bits the settle evaluations tripped)."""
+    L = _peers_of(vs, P)
+    v, viol, done, _rounds = _settle(L, vs, _knob_list(knobs))
     viol = viol | _w(done, 0, _BIT["no_fixpoint"])
     return viol | _w(done, _predicates(L, v), 0)
+
+
+def rounds_plain(vs: torch.Tensor, knobs, P: int) -> torch.Tensor:
+    """(B,) int64: the rounds of the fair schedule each row of the
+    liveness check runs (``MAX_ROUNDS`` where it finds no fixpoint)."""
+    return _settle(_peers_of(vs, P), vs, _knob_list(knobs))[3]
 
 
 # ---------------------------------------------------------------------------

@@ -88,8 +88,7 @@ def _launches(dev):
     knobs = torch.from_numpy(ma.make_knobs(cfg)).to(dev)
     ch, _vi, en = mc_step.mc_step(vs, knobs, 3)
     flat, valid = ch.view(-1, ch.shape[-1]), en.reshape(-1)
-    keys = mc_dedup.mc_sort_keys(flat, valid)
-    order = torch.sort(keys, stable=True).indices
+    skeys, order = torch.sort(mc_dedup.mc_sort_keys(flat, valid), stable=True)
     partials = mlp_train.mlp_train_partials(x, y, *w)
     return {
         "K1": lambda: mlp_forward.mlp_forward(x, *w),
@@ -100,7 +99,7 @@ def _launches(dev):
         "K5": lambda: mc_step.mc_step(vs, knobs, 3),
         "K6": lambda: mc_step.mc_liveness(vs, knobs, 3),
         "K7_hash": lambda: mc_dedup.mc_sort_keys(flat, valid),
-        "K7_keep": lambda: mc_dedup.mc_keep(flat, valid, order),
+        "K7_keep": lambda: mc_dedup.mc_keep(flat, skeys, order),
     }
 
 

@@ -200,6 +200,75 @@ def test_dedup_keeps_colliding_rows_and_drops_duplicates():
     assert order[-1] == 4
 
 
+def keep_inputs(seed: int = 0) -> dict:
+    """Batches built with numpy from a seed where the keep kernel's
+    shortcut (a different sort key proves different rows) is tested
+    hardest: {name: (flat (N, 8) int32, valid (N,) bool)}."""
+    rng = np.random.default_rng(seed)
+    a, b = (t.numpy().astype(np.int64) for t in _collision_pair())
+    states = rng.integers(-3, 3, size=(5, 8))
+    rows = rng.integers(-2, 2, size=(60, 8))
+    cases = {
+        # runs of a few states, every row a duplicate of many others
+        "duplicate_runs": (states[rng.integers(0, 5, size=300)],
+                           rng.random(300) < 0.7),
+        "one_state": (np.repeat(states[:1], 300, 0), np.ones(300, bool)),
+        # a disabled slot's child is its parent: invalid rows byte-equal
+        # to valid ones, on both sides of the valid -> invalid boundary
+        "invalid_equal_to_valid": (np.concatenate([rows, rows]),
+                                   np.arange(120) < 60),
+        "collision": (np.stack([a, b, a + 1])[rng.integers(0, 3, size=300)],
+                      rng.random(300) < 0.8),
+    }
+    return {name: (torch.from_numpy(((f + 2**31) % 2**32 - 2**31)
+                                    .astype(np.int32)),
+                   torch.from_numpy(v))
+            for name, (f, v) in cases.items()}
+
+
+@pytest.mark.parametrize("case", sorted(keep_inputs()))
+def test_keep_compares_rows_only_where_sorted_keys_are_equal(case):
+    """The keep kernel's premise: in the stable order of the sort keys,
+    keep[j] is 1 for a valid j whose key differs from its predecessor's
+    without reading a row, and only equal keys need the full-row compare;
+    that gives dedup_plain's keep exactly."""
+    flat, valid = keep_inputs()[case]
+    skeys, order = torch.sort(mc_dedup.sort_keys_plain(flat, valid),
+                              stable=True)
+    keep = []
+    for j, key in enumerate(skeys.tolist()):
+        if key >> 32:                           # invalid
+            keep.append(False)
+            continue
+        # valid rows sort first: a valid row's predecessor is valid
+        assert j == 0 or skeys[j - 1] >> 32 == 0
+        keep.append(j == 0 or key != skeys[j - 1]
+                    or not torch.equal(flat[order[j]], flat[order[j - 1]]))
+    want_keep, want_order = mc_dedup.dedup_plain(flat, valid)
+    assert torch.equal(order, want_order)
+    assert keep == want_keep.tolist()
+    # every distinct valid state survives, the collision's included
+    assert ({tuple(r) for r in flat[order[want_keep]].tolist()}
+            == {tuple(r) for r in flat[valid].tolist()})
+
+
+def test_rounds_count_the_fair_schedule(monkeypatch):
+    """rounds_plain counts each liveness row's rounds, and a row reads
+    no_fixpoint exactly where it would need more than MAX_ROUNDS."""
+    cfg = mc.CONFIGS["deaths3"]
+    knobs = torch.from_numpy(ma.make_knobs(cfg))
+    vs = torch.cat(_frontiers("deaths3", 2))
+    rounds = mc_step.rounds_plain(vs, knobs, 3)
+    assert rounds.shape == (vs.shape[0],)
+    assert int(rounds.min()) >= 1 and int(rounds.max()) < mc_step.MAX_ROUNDS
+    assert int(rounds.max()) > 1
+    monkeypatch.setattr(mc_step, "MAX_ROUNDS", 1)
+    assert torch.equal(mc_step.rounds_plain(vs, knobs, 3), rounds.clamp(max=1))
+    bits = mc_step.liveness_plain(vs, knobs, 3)
+    assert torch.equal(bits & canon.CATEGORY_BIT["no_fixpoint"] != 0,
+                       rounds > 1)
+
+
 def test_dedup_matches_the_reference_key_formula():
     rng = np.random.default_rng(0)
     flat = rng.integers(-2**31, 2**31, size=(64, 37), dtype=np.int64)
@@ -287,8 +356,9 @@ def _tiled(levels, batch):
 
 
 # K5's batches with a partial last block (csrc/mc_array.cu's kStepRows,
-# 2 rows a block)
+# 2 rows a block), and the probe's chunk over 4 and 2 shards (K8)
 PARTIAL_BATCHES = (1, 3, 5, 1023, 1025)
+SHARD_BATCHES = (256, 512)
 
 
 @pytest.mark.cuda
@@ -303,7 +373,7 @@ def test_kernels_match_plain_on_cuda(name, mut):
     levels = _frontiers(name, 4, MUTATIONS[mut])
     for part in _chunks(levels, 256) + \
             _chunks(_frontiers(name, 1, MUTATIONS[mut]), 1) + \
-            [_tiled(levels, b) for b in PARTIAL_BATCHES]:
+            [_tiled(levels, b) for b in PARTIAL_BATCHES + SHARD_BATCHES]:
         vc = part.cuda()
         before = _launch_counts()
         ch, vi, en = mc_step.mc_step(vc, kc, P)
@@ -327,6 +397,15 @@ def test_dedup_collision_on_cuda():
     flat, valid = collision_batch()
     keep, order = mc_dedup.mc_dedup(flat.cuda(), valid.cuda())
     assert sorted(order[keep].tolist()) == [0, 1, 3]
+    # the keep kernel's hardest inputs, each also tiled past one block
+    for name, (flat, valid) in keep_inputs().items():
+        for reps in (1, 7):
+            f = flat.repeat(reps, 1).contiguous()
+            v = valid.repeat(reps)
+            keep, order = mc_dedup.mc_dedup(f.cuda(), v.cuda())
+            want = mc_dedup.dedup_plain(f, v)
+            assert torch.equal(keep.cpu(), want[0]), (name, reps)
+            assert torch.equal(order.cpu(), want[1]), (name, reps)
 
 
 @pytest.mark.cuda
