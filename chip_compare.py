@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Hold K1, K2a, K4, K5, K6 and K7, and the paths that run them, to
-those of another tree (a parent commit unpacked with `git archive`) on
-one CUDA card.
+"""Hold K1, K2a, K2b, K4, K5, K6 and K7 (its sort too), and the paths
+that run them, to those of another tree (a parent commit unpacked with
+`git archive`) on one CUDA card.
 
     python3 chip_compare.py PARENT_TREE
 
@@ -17,20 +17,25 @@ come from this tree.  In order:
   1. bits: K1 and K2a of each tree on the same inputs, over the batches
      below (with this tree's K1 crossover and a row either side), four
      kinds of input, two sets of weights and, for K2a, three kinds of
-     labels (zeros x seed-0 weights is the z = 0 tie); K4 on the draws
-     of seeds 0-2 at chip_smoke.py's batches and 65,537; K5 and K6 on
-     the states of all six configs (P = 3 and 4) under each knob set at
-     chip_smoke.py's edge batches, and at 65,537 rows for one config of
-     each P, and K7 (mc_dedup's keep and order) on each case's own K5
-     output.  Every input and every output is reduced to the sha256 of
-     its bytes; the inputs must agree and so must the outputs, bit for
-     bit;
+     labels (zeros x seed-0 weights is the z = 0 tie); K2b (sums and new
+     parameters) on random partials of chip_smoke.py's K2B_ROWS (n = 1
+     to 4,097), scale 1 and 1/256, with and without parameters; K4 on
+     the draws of seeds 0-2 at chip_smoke.py's batches and 65,537; K5
+     and K6 on the states of all six configs (P = 3 and 4) under each
+     knob set at chip_smoke.py's edge batches, and at 65,537 rows for
+     one config of each P, and K7 (mc_dedup's keep and order) on each
+     case's own K5 output; K7's sort (the tree's hand sort where it has one, else
+     torch.sort(stable=True)) on each case's keys and on chip_smoke.py's
+     five kinds of key at its sizes.  Every input and every output is
+     reduced to the sha256 of its bytes; the inputs must agree and so
+     must the outputs, bit for bit;
   2. each kernel alone, a process a turn (parent, change, change,
      parent, parent, change), CUDA events: K1 at the batches the paths
-     give it and at bulk, K2a, K4 at 249, 256 and 65,536 rows, K5 and K6
-     at the probe's chunk and 65,536 rows, and K7 on the children of
-     those (34,816 and 2,228,224 rows): the whole mc_dedup, its hash
-     kernel (mc_sort_keys) and the stable torch.sort alone;
+     give it and at bulk, K2a, K2b at n = 1, 4 and 1,024 partial rows, K4
+     at 249, 256 and 65,536 rows, K5 and K6 at the probe's chunk and
+     65,536 rows, and K7 on the children of those (34,816 and 2,228,224
+     rows): the whole mc_dedup, its hash kernel (mc_sort_keys), the
+     tree's sort and torch.sort(stable=True) alone;
   3. the paths in twelve turns (parent, change, change, parent, ... and
      the same reversed), a process a run: the wall of evaluate(n_traces=
      60, seed=7), of train() and of the probe's explore at depth 5 and
@@ -46,6 +51,7 @@ Prints one JSON line per result and exits non-zero if anything differs.
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import os
 import statistics
@@ -60,6 +66,7 @@ import torch
 
 from chip_smoke import (
     COLD_BYTES,
+    K2B_ROWS,
     K4_BATCHES,
     MC_CHUNK,
     MC_CONFIG,
@@ -71,6 +78,8 @@ from chip_smoke import (
     input_kinds,
     mc_levels,
     require,
+    sort_key_kinds,
+    sort_sizes,
     tile_rows,
 )
 
@@ -79,6 +88,7 @@ K1_BATCHES = (1, 63, 64, 96, 374, 2048, 4458, 65537)   # + the crossover's
 K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
 K1_TIMED = (1, 64, 374, 2048, 65536)
 K2_TIMED = (256, 65536)
+K2B_TIMED = (1, 4, 1024)         # the mesh step's, a training step's, bulk
 K4_TIMED = (249, 256, 65536)
 K5_TIMED = (MC_CHUNK, 65536)     # K5-K7's states (K7: their children)
 BULK_ROWS = 65537                # K4's to K7's odd bulk batch
@@ -108,17 +118,31 @@ def weight_sets(dev) -> dict:
             "packaged": load_npz(DEFAULT_WEIGHTS).to(dev).tensors()}
 
 
-def side_bits(k1_batches) -> dict:
-    """{case: [input sha256, output sha256]} of this tree's K1 and K2a."""
+def tree_sort():
+    """This tree's K7 sort: its hand sort, or torch.sort(stable=True) in
+    a tree from before it (K7 called torch.sort there)."""
+    if importlib.util.find_spec("manatee_tpu_torch.kernels.mc_sort") is None:
+        return lambda keys: tuple(torch.sort(keys, stable=True))
+    from manatee_tpu_torch.kernels.mc_sort import mc_sort
+    return mc_sort
+
+
+def side_bits(sizes: dict) -> dict:
+    """{case: [input sha256, output sha256]} of this tree's K1, K2a, K2b,
+    K4 and K5-K7 (K1 at sizes["K1"], K7's sort at sizes["sort"])."""
     from manatee_tpu_torch.kernels.mlp_forward import mlp_forward
-    from manatee_tpu_torch.kernels.mlp_train import mlp_train_partials
+    from manatee_tpu_torch.kernels.mlp_train import (
+        GRAD_SIZE,
+        mlp_sgd_apply,
+        mlp_train_partials,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     out = {}
     with torch.no_grad():
         for wname, w in weight_sets(dev).items():
-            for batch in k1_batches:
+            for batch in sizes["K1"]:
                 for kind, x in input_kinds(batch, g, dev).items():
                     out["K1 %s B=%d %s" % (wname, batch, kind)] = [
                         sha(x, *w), sha(mlp_forward(x, *w))]
@@ -134,8 +158,20 @@ def side_bits(k1_batches) -> dict:
                             wname, batch, kind, lname)] = [
                             sha(x, y, *w),
                             sha(mlp_train_partials(x, y, *w))]
+            for n in K2B_ROWS:
+                partials = 3 * torch.randn(n, GRAD_SIZE, generator=g,
+                                           device=dev)
+                for scale in (1.0, 1 / 256):
+                    for params in (None, w):
+                        sums, new = mlp_sgd_apply(partials, scale, params,
+                                                  0.05)
+                        out["K2b %s n=%d scale %g %s" % (
+                            wname, n, scale,
+                            "params" if params else "sums only")] = [
+                            sha(partials, *(params or ())),
+                            sha(sums, *(new or ()))]
     out.update(side_bits_k4(dev))
-    out.update(side_bits_mc(dev))
+    out.update(side_bits_mc(dev, sizes["sort"]))
     return out
 
 
@@ -157,12 +193,14 @@ def side_bits_k4(dev) -> dict:
     return out
 
 
-def side_bits_mc(dev) -> dict:
-    """K5 and K6 on every config's states, K7 on each K5 output."""
-    from manatee_tpu_torch.kernels.mc_dedup import mc_dedup
+def side_bits_mc(dev, key_counts) -> dict:
+    """K5 and K6 on every config's states, K7 and its sort on each K5
+    output, the sort on chip_smoke.py's kinds of key."""
+    from manatee_tpu_torch.kernels.mc_dedup import mc_dedup, mc_sort_keys
     from manatee_tpu_torch.kernels.mc_step import mc_liveness, mc_step
     from manatee_tpu_torch.state.modelcheck import CONFIGS
 
+    sort = tree_sort()
     out = {}
     for name in sorted(CONFIGS):
         for kw in MC_KNOB_SETS:
@@ -180,18 +218,28 @@ def side_bits_mc(dev) -> dict:
                 valid = children[2].reshape(-1)
                 out["K7 " + case] = [sha(flat, valid),
                                      sha(*mc_dedup(flat, valid))]
+                keys = mc_sort_keys(flat, valid)
+                out["K7sort " + case] = [sha(keys), sha(*sort(keys))]
+    g = torch.Generator(device=dev).manual_seed(4)
+    for n in key_counts:
+        for kind, keys in sort_key_kinds(n, g, dev).items():
+            out["K7sort %s n=%d" % (kind, n)] = [sha(keys), sha(*sort(keys))]
     return out
 
 
 def side_kernels() -> dict:
     """{kernel: {batch: ms}}: each kernel alone, through its wrapper."""
     from manatee_tpu_torch.kernels.mlp_forward import mlp_forward
-    from manatee_tpu_torch.kernels.mlp_train import mlp_train_partials
+    from manatee_tpu_torch.kernels.mlp_train import (
+        GRAD_SIZE,
+        mlp_sgd_apply,
+        mlp_train_partials,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     w = weight_sets(dev)["packaged"]
-    out = {"K1": {}, "K2a": {}}
+    out = {"K1": {}, "K2a": {}, "K2b": {}}
     with torch.no_grad():
         for batch in K1_TIMED:
             n = max(1, min(8, COLD_BYTES // (batch * 80 * 4)))
@@ -204,6 +252,11 @@ def side_kernels() -> dict:
                      (torch.rand(batch, generator=g, device=dev) > 0.5)
                      .float(), *w) for _ in range(n)]
             out["K2a"][batch] = device_ms(mlp_train_partials, args)
+        for n in K2B_TIMED:
+            bufs = max(1, min(8, COLD_BYTES // (n * GRAD_SIZE * 4)))
+            args = [(torch.randn(n, GRAD_SIZE, generator=g, device=dev),
+                     1 / 256, w, 0.05) for _ in range(bufs)]
+            out["K2b"][n] = device_ms(mlp_sgd_apply, args)
     out.update(side_kernels_k4_k7(dev, g))
     return out
 
@@ -214,8 +267,9 @@ def side_kernels_k4_k7(dev, g) -> dict:
     from manatee_tpu_torch.kernels.mc_step import mc_liveness, mc_step
     from manatee_tpu_torch.kernels.synthetic_batch import synthetic_windows
 
+    sort = tree_sort()
     out = {"K4": {}, "K5": {}, "K6": {}, "K7": {}, "K7_hash": {},
-           "K7_sort": {}}
+           "K7_sort": {}, "K7_torch_sort": {}}
     for batch in K4_TIMED:
         n = max(1, min(8, COLD_BYTES // (batch * 680)))
         out["K4"][batch] = device_ms(synthetic_windows, [
@@ -234,7 +288,8 @@ def side_kernels_k4_k7(dev, g) -> dict:
         out["K7_hash"][batch] = device_ms(mc_sort_keys, [(flat, valid)],
                                           **reps)
         keys = mc_sort_keys(flat, valid)
-        out["K7_sort"][batch] = device_ms(
+        out["K7_sort"][batch] = device_ms(sort, [(keys,)], **reps)
+        out["K7_torch_sort"][batch] = device_ms(
             lambda k: torch.sort(k, stable=True), [(keys,)], **reps)
         del ch, flat, valid, keys
     return out
@@ -334,7 +389,8 @@ def bit_identity(parent: Path) -> dict:
 
     k1_batches = sorted({*K1_BATCHES, CROSSOVER - 1, CROSSOVER,
                          CROSSOVER + 1})
-    arg = json.dumps(k1_batches)
+    # from this tree's package: a parent tree may have no hand sort
+    arg = json.dumps({"K1": k1_batches, "sort": sort_sizes()})
     want, got = run_side(parent, "bits", arg), run_side(REPO, "bits", arg)
     require(want.keys() == got.keys(), "the trees ran different cases")
     for case, (x, y) in got.items():
@@ -343,11 +399,15 @@ def bit_identity(parent: Path) -> dict:
                 % case)
     return {"K1_launches_equal": sum(c.startswith("K1") for c in got),
             "K2a_launches_equal": sum(c.startswith("K2a") for c in got),
+            "K2b_launches_equal": sum(c.startswith("K2b") for c in got),
             "K4_launches_equal": sum(c.startswith("K4") for c in got),
             "K5_launches_equal": sum(c.startswith("K5") for c in got),
             "K6_launches_equal": sum(c.startswith("K6") for c in got),
-            "K7_launches_equal": sum(c.startswith("K7") for c in got),
+            "K7_launches_equal": sum(c.startswith("K7 ") for c in got),
+            "K7_sort_launches_equal": sum(c.startswith("K7sort")
+                                          for c in got),
             "K1_batches": k1_batches, "K2a_batches": K2_BATCHES,
+            "K2b_rows": K2B_ROWS, "K7_sort_sizes": sort_sizes(),
             "K4_batches": sorted({*K4_BATCHES, BULK_ROWS}),
             "K5_K6_K7_batches": MC_EDGE,
             "K5_K6_K7_bulk": [BULK_ROWS, K5_BULK_CONFIGS]}

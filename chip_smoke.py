@@ -10,7 +10,7 @@ phase catches its own failure:
   a. the card's name and power limit, as nvidia-smi reports them;
   b. build every kernel from the sources (nvcc, sm_90a, one process per
      source, all started together), with ptxas's registers, stack and
-     spills of K6 and K7;
+     spills of K2b, K6, K7 and K7's sort;
   c. K1 against its plain PyTorch version on the card, TF32 off, over
      the batch sizes below, the crossover between its two launch shapes
      and a row either side, and every batch the serving path gives it,
@@ -24,6 +24,12 @@ phase catches its own failure:
      weights (zeros x seed-0 weights is the z = 0 tie), at batches with
      partial tiles and several entry slices; a second launch gives the
      same bits;
+  r. K2b against its block-order reference (one double chain an entry,
+     a float32 scale) bit for bit at n = 1, 4, 5, 8, 9, 32, 33, 64,
+     1024, 1025 and 4097 partial rows, scale 1 and 1/256, with and
+     without parameters; K7's hand sort (mc_sort) against
+     torch.sort(stable=True) bit for bit on five kinds of key at sizes
+     from 0 to 2,228,224, both sides of the cluster's capacity;
   f. the serving path, launch counts set to 0 just before it: entry()
      on the card, then the recorded-trace replay (evaluate_recorded) of
      every tests/data/recorded-* directory;
@@ -60,9 +66,10 @@ phase catches its own failure:
      plain versions' on the CPU; differential against the oracle for all
      six configs at depth 5 and the four mutation cases; the users'
      sweep (`make modelcheck-jax`: every config at depth 8) through the
-     CLI with --engine torch; then, for the probe's depth-5 and depth-7
-     runs, the rounds each K6 row runs, K7's valid and equal-key rows
-     and the launches;
+     CLI with --engine torch; the hand sort on the probe's own keys
+     against torch.sort; then, for the probe's depth-5 and depth-7 runs,
+     the rounds each K6 row runs, K7's valid and equal-key rows and the
+     launches (each K7 kernel, the sort included, once a dedup call);
   p. (run after l) K8, the sharded engine, on the card, launch counts
      set to 0 just before it: the probe configuration (promote, chunk
      1024, depth 5 and 7) over 2 and 4 shards of one card and over every
@@ -87,12 +94,15 @@ phase catches its own failure:
      B = 1, 64, the largest trace, 2,048, 4,096, 8,192, 16,384 and
      65,536 in both launch shapes; K2a's bound counts its double sums at
      the fp64 rate; K4 at 249, 256 and 65,536; K5-K7 at chunk 1024 and
-     at 65,536 rows of real frontier states, K7 with the sort's time
-     apart, K6 also at K8's 256 and 512 rows and in every launch shape
-     of K6_SHAPES (each built from mc_array.cu with its two constants
+     at 65,536 rows of real frontier states, K7 with its hash, sort and
+     keep apart, the sort beside torch.sort on 8,704 to 69,633 of those
+     keys and at each cluster size of SORT_CLUSTERS (each built from
+     mc_sort.cu with kCluster replaced, held to torch.sort's bits), K6
+     also at K8's 256 and 512 rows and in every launch shape of
+     K6_SHAPES (each built from mc_array.cu with its two constants
      replaced, held to the committed shape's bits); K8 over 1, 2 and 4
      shards at both sizes, with the gather's time apart);
-  n. one JSON line describing every kernel, K1-K8;
+  n. one JSON line describing every kernel, K1-K8 and K7's sort;
   o. last line: {"ok": true, "device": {...}}.
 
 It exits non-zero and prints no result when CUDA is unavailable or the
@@ -127,6 +137,11 @@ CHECK_BATCHES = (1, 63, 64, 96, 2048, 4458, 65537)
 K4_BATCHES = (1, 2, 3, 7, 15, 16, 17, 64, 249, 255, 256, 257, 2048, 65537)
 # K2a at 65 and 128: partial tiles, several entry slices a tile
 K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
+# K2b's partial rows: the mesh step's apply (1), a training step's (4),
+# whole and partial groups of 4 and of 32 rows (csrc/mlp_train.cu
+# kApplyGroup, kApplyWide), `health/train.py --batch` 513 to 4,096 (n =
+# ceil(B/64): 9 to 64), and 65,536 rows' 1,024
+K2B_ROWS = (1, 4, 5, 8, 9, 32, 33, 64, 1024, 1025, 4097)
 QUALITY_SEEDS = (0, 1, 2, 3, 4)  # train() seeds read against the bar
 TRAIN_BATCH = 256                # the training path's batch (249 + 7 rows)
 BULK_BATCH = 65536               # the batch the kernels line reports
@@ -222,7 +237,10 @@ KERNEL_NAMES = {"K1": ("mlp_forward_rows", "mlp_forward_tiles"),
                 "K2b": ("mlp_sgd_apply_kernel",),
                 "K4": ("synthetic_batch_kernel",),
                 "K5": ("mc_step_kernel",), "K6": ("mc_liveness_kernel",),
-                "K7_hash": ("mc_hash_kernel",), "K7_keep": ("mc_keep_kernel",)}
+                "K7_hash": ("mc_hash_kernel",), "K7_keep": ("mc_keep_kernel",),
+                # one event a sort: the cluster kernel, or the tiles' last pass
+                "K7_sort": ("mc_sort_cluster_kernel",
+                            "mc_sort_scatter_kernel<2>")}
 
 
 def profile_run(run) -> dict:
@@ -252,7 +270,13 @@ def profile_run(run) -> dict:
     launches = {k: counts[k] for k in KERNEL_NAMES}
     complete = bool(on_device) and events == launches
     busy_ms = 1e-3 * sum(e.self_device_time_total for e in on_device)
+    # torch's own sorts (the checker's sort of the kept rows' indices)
+    library_sorts = [e for e in on_device
+                     if "Sort" in e.key and "mc_sort" not in e.key]
     return {"wall_ms": wall_ms, "events_complete": complete,
+            "library_sort_device_ms": 1e-3 * sum(
+                e.self_device_time_total for e in library_sorts),
+            "library_sort_events": sum(e.count for e in library_sorts),
             "kernel_events": events, "launches": launches,
             "device_busy_ms": busy_ms if complete else None,
             "idle_share": 1 - busy_ms / wall_ms if complete else None,
@@ -373,6 +397,89 @@ def check_k2(weight_sets, g, dev) -> dict:
           "(loss, new tensors) vs float32 %.3g over B=%s (tolerance %g); "
           "reruns bit-equal" % (err["K2a"], err["K2b"], K2_BATCHES, TOL))
     return err
+
+
+def check_k2b(dev) -> int:
+    """r. K2b equals its block-order reference bit for bit."""
+    from manatee_tpu_torch.health.predictor import init_params
+    from manatee_tpu_torch.kernels import mlp_train as k2
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    w = init_params(torch.Generator(device=dev).manual_seed(0)).tensors()
+    n_cases = 0
+    for n in K2B_ROWS:
+        partials = 3 * torch.randn(n, k2.GRAD_SIZE, generator=g, device=dev)
+        for scale in (1.0, 1 / 256):
+            for params in (None, w):
+                sums, new = k2.mlp_sgd_apply(partials, scale, params, 0.05)
+                want, want_new = k2.sgd_apply_block_order(
+                    partials, scale, params, 0.05)
+                torch.cuda.synchronize()
+                require(torch.equal(sums, want) and (
+                    new is None if params is None
+                    else all(torch.equal(a, b)
+                             for a, b in zip(new, want_new))),
+                        "K2b differs from its block-order reference (n=%d, "
+                        "scale %g, parameters %s)"
+                        % (n, scale, params is not None))
+                n_cases += 1
+    print("K2b vs its block-order reference: equal bit for bit on %d cases "
+          "(n=%s, scale 1 and 1/256, with and without parameters)"
+          % (n_cases, K2B_ROWS))
+    return n_cases
+
+
+def sort_sizes() -> tuple:
+    """The hand sort's checked sizes: tiny, around a warp and a round,
+    the checker's chunk, the cluster path's capacity either side, the
+    tiled path (65,536 rows' children)."""
+    from manatee_tpu_torch.kernels import mc_sort
+
+    cap = mc_sort.CLUSTER * mc_sort.TILE
+    return (0, 1, 2, 31, 32, 33, 1023, 1024, 2047, 34 * MC_CHUNK, cap - 1,
+            cap, cap + 1, 65537, 34 * MC_BULK)
+
+
+def sort_key_kinds(n: int, g: torch.Generator, dev) -> dict:
+    """Sort keys as the hash kernel writes them, < 2**33, of five kinds:
+    random, a few keys in long runs, all invalid, only bit 32 set or
+    not, and the probe's mix (~12% valid, repeated hashes)."""
+    def ints(high, size):
+        return torch.randint(0, high, (size,), generator=g, device=dev)
+
+    if n == 0:
+        return dict.fromkeys(("random", "ties", "all_invalid", "bit32_only",
+                              "checker"), ints(2, 0))
+    hashes = ints(2**32, n)
+    invalid = (torch.rand(n, generator=g, device=dev) < 0.88).long()
+    return {
+        "random": ints(2**33, n),
+        "ties": ints(2**33, 5)[ints(5, n)],
+        "all_invalid": (1 << 32) | hashes[ints(max(n // 8, 1), n)],
+        "bit32_only": ints(2, n) << 32,
+        "checker": (invalid << 32) | hashes[ints(max(n // 3, 1), n)],
+    }
+
+
+def check_sort(dev) -> int:
+    """r. The hand sort against torch.sort(stable=True), bit for bit."""
+    from manatee_tpu_torch.kernels import mc_sort
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    n_cases = 0
+    for n in sort_sizes():
+        for kind, keys in sort_key_kinds(n, g, dev).items():
+            want = torch.sort(keys, stable=True)
+            skeys, order = mc_sort.mc_sort(keys)
+            torch.cuda.synchronize()
+            require(torch.equal(skeys, want.values)
+                    and torch.equal(order, want.indices),
+                    "the hand sort differs from torch.sort (n=%d, %s keys, "
+                    "plan %s)" % (n, kind, mc_sort.plan(n)))
+            n_cases += 1
+    print("K7 sort vs torch.sort(stable=True): equal bit for bit on %d cases "
+          "(n=%s, 5 kinds of key)" % (n_cases, sort_sizes()))
+    return n_cases
 
 
 def reset_counts() -> None:
@@ -721,20 +828,22 @@ def check_k7_inputs(dev) -> int:
 
 
 def mc_reset_counts() -> None:
-    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.kernels import mc_dedup, mc_sort, mc_step
 
     mc_step.mc_step.launches = 0
     mc_step.mc_liveness.launches = 0
     mc_dedup.mc_sort_keys.launches = 0
+    mc_sort.mc_sort.launches = 0
     mc_dedup.mc_keep.launches = 0
 
 
 def mc_read_counts() -> dict:
-    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.kernels import mc_dedup, mc_sort, mc_step
 
     return {"K5": mc_step.mc_step.launches,
             "K6": mc_step.mc_liveness.launches,
             "K7_hash": mc_dedup.mc_sort_keys.launches,
+            "K7_sort": mc_sort.mc_sort.launches,
             "K7_keep": mc_dedup.mc_keep.launches}
 
 
@@ -786,6 +895,7 @@ def model_checker_path(dev) -> dict:
     require(counts["K5"] == len(rec.calls["K5"])
             and counts["K6"] == len(rec.calls["K6"])
             and counts["K7_hash"] == len(rec.calls["K7"])
+            and counts["K7_sort"] == len(rec.calls["K7"])
             and counts["K7_keep"] == len(rec.calls["K7"]),
             "launches %s vs calls %s" % (counts, {
                 k: len(v) for k, v in rec.calls.items()}))
@@ -796,10 +906,22 @@ def model_checker_path(dev) -> dict:
         for args, out in calls:
             mc_check_call(key, args, out)
     torch.cuda.synchronize()
+    # the hand sort on the probe's own keys against torch.sort
+    from manatee_tpu_torch.kernels import mc_dedup, mc_sort
+    for (flat, valid), _out in rec.calls["K7"]:
+        keys = mc_dedup.sort_keys_plain(flat, valid)
+        want = torch.sort(keys, stable=True)
+        skeys, order = mc_sort.mc_sort(keys)
+        require(torch.equal(skeys, want.values)
+                and torch.equal(order, want.indices),
+                "the hand sort differs from torch.sort on the probe's keys")
+    torch.cuda.synchronize()
     print("mc main path vs plain: equal on every call (K5 %d, K6 %d, K7 "
-          "hash %d + keep %d) in %.1f s" % (
+          "hash %d + sort %d + keep %d; the sort also against torch.sort on "
+          "each call's keys) in %.1f s" % (
               counts["K5"], counts["K6"], counts["K7_hash"],
-              counts["K7_keep"], time.perf_counter() - t0))
+              counts["K7_sort"], counts["K7_keep"],
+              time.perf_counter() - t0))
     # the real frontier states (every liveness input), for timing
     frontier = torch.cat([a[0] for a, _out in rec.calls["K6"]])
     calls = {k: len(v) for k, v in rec.calls.items()}
@@ -873,7 +995,8 @@ def checker_counts(dev) -> dict:
     (the slowest row of a warp sets its time), the K7 rows that are
     valid and those whose sort key equals their sorted predecessor's
     (the pairs the keep kernel compares in full; a collision when the
-    rows differ), and each run's launches."""
+    rows differ), the rows of each torch.sort(order[keep]) the explorer
+    runs after K7, and each run's launches."""
     from manatee_tpu_torch.kernels import mc_dedup, mc_step
     from manatee_tpu_torch.state import canon
     from manatee_tpu_torch.state import mc_array as ma
@@ -887,11 +1010,19 @@ def checker_counts(dev) -> dict:
             ma.explore_torch(CONFIGS[MC_CONFIG], depth=depth, chunk=MC_CHUNK,
                              device=dev)
         launches = mc_read_counts()
+        require(all(launches[k] == len(rec.calls["K7"])
+                    for k in ("K7_hash", "K7_sort", "K7_keep")),
+                "K7 launches %s at depth %d, dedup calls %d"
+                % (launches, depth, len(rec.calls["K7"])))
         rounds = torch.cat([mc_step.rounds_plain(*args)
                             for args, _bits in rec.calls["K6"]])
         bits = torch.cat([b for _args, b in rec.calls["K6"]])
         hist = torch.bincount(rounds, minlength=mc_step.MAX_ROUNDS + 1)
         k7 = dict.fromkeys(("rows", "valid", "equal_key", "collisions"), 0)
+        # the explorer's second device sort, torch.sort(order[keep]): a
+        # call a dedup, on the kept rows
+        k7["kept_sort_rows"] = [int(keep.sum())
+                                for _args, (keep, _order) in rec.calls["K7"]]
         for (flat, valid), (_keep, order) in rec.calls["K7"]:
             skeys = mc_dedup.sort_keys_plain(flat, valid)[order]
             same = torch.zeros_like(valid)
@@ -918,6 +1049,8 @@ def checker_counts(dev) -> dict:
 # K6's launch shapes timed on the card: (rows a warp, warps a block)
 K6_SHAPES = ((1, 4), (2, 2), (4, 1), (8, 1), (16, 1), (32, 1))
 K6_CONSTANTS = ("kLiveRowsPerWarp", "kLiveWarps")
+# the sort's cluster sizes timed beside mc_sort.cu's kCluster (8)
+SORT_CLUSTERS = (1, 2, 4)
 
 
 def k6_shape() -> tuple:
@@ -944,37 +1077,81 @@ def ptxas_summary(log: str, needle: str) -> dict:
     return out
 
 
-def k6_shape_libraries(tmp: Path) -> dict:
-    """mc_array.cu built once for each shape of K6_SHAPES, the two
-    constants replaced in a copy of the source, one nvcc process a shape,
-    all started together: {shape: (ctypes library, ptxas summary)}."""
+def variant_libraries(tmp: Path, specs) -> dict:
+    """Each (source, ((constant, value), ...)) of *specs* built from a
+    copy of csrc/<source>.cu with those constants replaced, one nvcc
+    process a spec, all started together: {spec: (ctypes library,
+    nvcc's log)}."""
     from manatee_tpu_torch.kernels import nvcc
 
-    src = (nvcc.CSRC / "mc_array.cu").read_text()
     jobs = {}
-    for shape in K6_SHAPES:
-        text = src
-        for name, value in zip(K6_CONSTANTS, shape):
-            text, n = re.subn(r"constexpr int %s = \d+;" % name,
-                              "constexpr int %s = %d;" % (name, value), text)
-            require(n == 1, "%s not found in mc_array.cu" % name)
-        cu = tmp / ("mc_array_%dx%d.cu" % shape)
+    for spec in specs:
+        name, values = spec
+        text = (nvcc.CSRC / ("%s.cu" % name)).read_text()
+        for const, value in values:
+            text, n = re.subn(r"constexpr int %s = \d+;" % const,
+                              "constexpr int %s = %d;" % (const, value), text)
+            require(n == 1, "%s not found in %s.cu" % (const, name))
+        cu = tmp / ("%s_%s.cu" % (name, "_".join(str(v) for _, v in values)))
         cu.write_text(text)
         lib = cu.with_suffix(".so")
-        jobs[shape] = (lib, subprocess.Popen(
+        jobs[spec] = (lib, subprocess.Popen(
             [nvcc._nvcc(), *nvcc.FLAGS, "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for shape, (lib, proc) in jobs.items():
-        log, _ = proc.communicate(timeout=600)
-        require(proc.returncode == 0, "K6 shape %s: nvcc failed:\n%s"
-                % (shape, log[-3000:]))
-        cdll = ctypes.CDLL(str(lib))
+    try:
+        for spec, (lib, proc) in jobs.items():
+            log, _ = proc.communicate(timeout=600)
+            require(proc.returncode == 0, "%s: nvcc failed:\n%s"
+                    % (spec, log[-3000:]))
+            libs[spec] = (ctypes.CDLL(str(lib)), log)
+    finally:
+        for _lib, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return libs
+
+
+def k6_spec(shape) -> tuple:
+    return "mc_array", tuple(zip(K6_CONSTANTS, shape))
+
+
+def sort_spec(ctas) -> tuple:
+    return "mc_sort", (("kCluster", ctas),)
+
+
+def variant_launchers(tmp: Path) -> tuple:
+    """K6 in every shape of K6_SHAPES and the cluster sort at every size
+    of SORT_CLUSTERS, built together: ({shape: (library, ptxas)},
+    {CTAs: (library, ptxas)})."""
+    libs = variant_libraries(tmp, [k6_spec(sh) for sh in K6_SHAPES]
+                             + [sort_spec(c) for c in SORT_CLUSTERS])
+    shapes, sorts = {}, {}
+    for shape in K6_SHAPES:
+        cdll, log = libs[k6_spec(shape)]
         cdll.mc_liveness_launch.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         cdll.mc_liveness_launch.restype = ctypes.c_int
-        libs[shape] = (cdll, ptxas_summary(log, "mc_liveness_kernel"))
-    return libs
+        shapes[shape] = (cdll, ptxas_summary(log, "mc_liveness_kernel"))
+    for ctas in SORT_CLUSTERS:
+        cdll, log = libs[sort_spec(ctas)]
+        cdll.mc_sort_cluster_launch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        cdll.mc_sort_cluster_launch.restype = ctypes.c_int
+        sorts[ctas] = (cdll, ptxas_summary(log, "mc_sort_cluster_kernel"))
+    return shapes, sorts
+
+
+def sort_cluster_launch(lib, keys):
+    """The cluster sort of another cluster size's library: a
+    comparison, not counted."""
+    skeys, order = torch.empty_like(keys), torch.empty_like(keys)
+    err = lib.mc_sort_cluster_launch(
+        keys.data_ptr(), skeys.data_ptr(), order.data_ptr(), keys.shape[0],
+        keys.device.index, torch.cuda.current_stream(keys.device).cuda_stream)
+    require(err == 0, "cluster sort launch failed (%d)" % err)
+    return skeys, order
 
 
 def k6_shape_launch(lib, vs, knobs, P):
@@ -991,7 +1168,7 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
     """K5, K6 and K7 alone at the probe's chunk and at 65,536 rows of
     real frontier states, beside their plain versions, the sort and
     their bytes bounds."""
-    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.kernels import mc_dedup, mc_sort, mc_step
     from manatee_tpu_torch.state import mc_array as ma
     from manatee_tpu_torch.state.modelcheck import CONFIGS
 
@@ -999,10 +1176,11 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
     L = ma.Layout(P)
     S = len(ma.slot_table(P))
     knobs = torch.from_numpy(ma.make_knobs(CONFIGS[MC_CONFIG])).to(dev)
-    out = {"K5": {}, "K6": {}, "K7": {}}
+    out = {"K5": {}, "K6": {}, "K7": {}, "K7_sort": {}}
     shape = k6_shape()
     with tempfile.TemporaryDirectory() as tmp:
-        shapes = k6_shape_libraries(Path(tmp))
+        # a loaded library outlives its deleted file
+        shapes, sorts = variant_launchers(Path(tmp))
         # K8's rows a shard (4 and 2 shards), the chunk, the bulk batch
         for batch in (MC_CHUNK // 4, MC_CHUNK // 2, MC_CHUNK, MC_BULK):
             vs = tile_rows(frontier, batch)
@@ -1026,7 +1204,8 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
           "(mc_array.cu); every swept shape %s gives its bits at B=%s"
           % (shape[0], 32 // shape[0], shape[1],
              ["%dx%d" % sh for sh in K6_SHAPES], sorted(out["K6"])))
-    print(json.dumps({"K6_shape_ptxas": ptxas}))
+    print(json.dumps({"K6_shape_ptxas": ptxas, "sort_cluster_ptxas": {
+        c: summary for c, (_, summary) in sorts.items()}}))
     for batch in (MC_CHUNK, MC_BULK):
         vs = tile_rows(frontier, batch)
         # at 65,536 rows a call takes milliseconds: fewer samples
@@ -1047,25 +1226,60 @@ def mc_timing(frontier, dev, bw, flops) -> dict:
         flat, valid = ch.view(-1, L.SIZE), en.reshape(-1)
         n = flat.shape[0]
         keys = mc_dedup.mc_sort_keys(flat, valid)
-        skeys, order = torch.sort(keys, stable=True)
+        skeys, order = mc_sort.mc_sort(keys)
         hash_ms = device_ms(mc_dedup.mc_sort_keys, [(flat, valid)], **kreps)
+        sort_ms = device_ms(mc_sort.mc_sort, [(keys,)], **kreps)
         keep_ms = device_ms(mc_dedup.mc_keep, [(flat, skeys, order)],
                             **kreps)
-        sort_ms = device_ms(lambda k: torch.sort(k, stable=True), [(keys,)],
-                            **kreps)
+        torch_sort_ms = device_ms(lambda k: torch.sort(k, stable=True),
+                                  [(keys,)], **kreps)
         # each input read once, each output written once
         out["K7"][batch] = {
-            "rows": n, "ms": hash_ms + keep_ms, "hash_ms": hash_ms,
-            "keep_ms": keep_ms, "sort_ms": sort_ms,
+            "rows": n, "ms": hash_ms + sort_ms + keep_ms, "hash_ms": hash_ms,
+            "sort_ms": sort_ms, "keep_ms": keep_ms,
+            "torch_sort_ms": torch_sort_ms,
             "dedup_ms": device_ms(mc_dedup.mc_dedup, [(flat, valid)], **kreps),
             "plain_ms": device_ms(mc_dedup.dedup_plain, [(flat, valid)],
                                   **reps),
-            "library_ms": sort_ms,
+            "library_ms": None,
             "valid_rows": int(valid.sum()),
             "equal_key_rows": int(((skeys[1:] == skeys[:-1])
                                    & (skeys[1:] >> 32 == 0)).sum()),
             **bound(n * L.SIZE * 4 + n + n + n * 8, 0, bw, flops)}
+        # the sort: its keys read once, its keys and order written once
+        out["K7_sort"][n] = {
+            "rows": n, "plan": mc_sort.plan(n), "ms": sort_ms,
+            "plain_ms": torch_sort_ms, "library_ms": torch_sort_ms,
+            **bound(n * 8 + n * 16, 0, bw, flops)}
+        if batch == MC_BULK:
+            # prefixes of these keys, from one CTA's tile to a key past
+            # the cluster's capacity, and every cluster size that holds
+            # them
+            cap = mc_sort.CLUSTER * mc_sort.TILE
+            for m in (mc_sort.TILE, 2 * mc_sort.TILE, 34 * MC_CHUNK, cap,
+                      cap + 1):
+                part = keys[:m].contiguous()
+                want = torch.sort(part, stable=True)
+                by_cluster = {}
+                for ctas, (lib, _) in sorts.items():
+                    if ctas * mc_sort.TILE < m:
+                        continue
+                    got = sort_cluster_launch(lib, part)
+                    require(torch.equal(got[0], want.values)
+                            and torch.equal(got[1], want.indices),
+                            "the %d-CTA sort differs from torch.sort at "
+                            "%d keys" % (ctas, m))
+                    by_cluster[ctas] = device_ms(
+                        lambda k, lib=lib: sort_cluster_launch(lib, k),
+                        [(part,)])
+                out["K7_sort"].setdefault(m, {"rows": m}).update(
+                    prefix_plan=mc_sort.plan(m),
+                    prefix_ms=device_ms(mc_sort.mc_sort, [(part,)]),
+                    torch_sort_prefix_ms=device_ms(
+                        lambda k: torch.sort(k, stable=True), [(part,)]),
+                    by_cluster_ms=by_cluster)
         del ch, flat, valid, keys, skeys, order
+    del sorts
     return out
 
 
@@ -1112,12 +1326,13 @@ class EngineRecorder:
 
 
 def kernel_launches(dev) -> dict:
-    """One launch of each kernel of the five libraries on *dev*."""
+    """One launch of each kernel of the six libraries on *dev* (K7's
+    sort in both its plans)."""
     from manatee_tpu_torch.health.predictor import (
         init_params,
         synthetic_draws,
     )
-    from manatee_tpu_torch.kernels import mc_dedup, mc_step
+    from manatee_tpu_torch.kernels import mc_dedup, mc_sort, mc_step
     from manatee_tpu_torch.kernels import mlp_forward as k1
     from manatee_tpu_torch.kernels import mlp_train as k2
     from manatee_tpu_torch.kernels import synthetic_batch as k4
@@ -1135,7 +1350,10 @@ def kernel_launches(dev) -> dict:
     knobs = torch.from_numpy(ma.make_knobs(cfg)).to(dev)
     ch, _vi, en = mc_step.mc_step(vs, knobs, P)
     flat, valid = ch.view(-1, ch.shape[-1]), en.reshape(-1)
-    skeys, order = torch.sort(mc_dedup.mc_sort_keys(flat, valid), stable=True)
+    keys = mc_dedup.mc_sort_keys(flat, valid)
+    skeys, order = mc_sort.mc_sort(keys)
+    big = torch.randint(0, 2**33, (mc_sort.CLUSTER * mc_sort.TILE + 1,),
+                        generator=g, device=dev)
     partials = k2.mlp_train_partials(x, y, *w)
     return {
         "K1": lambda: k1.mlp_forward(x, *w),
@@ -1145,12 +1363,15 @@ def kernel_launches(dev) -> dict:
         "K5": lambda: mc_step.mc_step(vs, knobs, P),
         "K6": lambda: mc_step.mc_liveness(vs, knobs, P),
         "K7_hash": lambda: mc_dedup.mc_sort_keys(flat, valid),
+        "K7_sort": lambda: mc_sort.mc_sort(keys),
+        "K7_sort_tiles": lambda: mc_sort.mc_sort(big),
         "K7_keep": lambda: mc_dedup.mc_keep(flat, skeys, order),
     }
 
 
 def check_current_device() -> dict:
-    """Every kernel, K1-K7, launched on each card with another card
+    """Every kernel, K1-K7 (the sort in both its plans),
+    launched on each card with another card
     current where there is one: the current device is unchanged after
     every launch."""
     n = torch.cuda.device_count()
@@ -1516,8 +1737,9 @@ def main() -> int:
             for name, log in logs.items()}
     print(json.dumps({"ptxas": {
         kernel: ptxas_summary(logs[name], kernel) for name, kernel in (
+            ("mlp_train", "mlp_sgd_apply"),
             ("mc_array", "mc_liveness_kernel"), ("mc_dedup", "mc_hash_kernel"),
-            ("mc_dedup", "mc_keep_kernel"))}}))
+            ("mc_dedup", "mc_keep_kernel"), ("mc_sort", "mc_sort_"))}}))
 
     # c. K1 vs plain, at the listed batches and every batch the serving
     # path gives the kernel (one per recorded trace)
@@ -1559,9 +1781,11 @@ def main() -> int:
           "shape %s gives the same bits; crossover %d"
           % (max_err, batches, TOL, k1.SHAPES, k1.CROSSOVER))
 
-    # d. K4 vs plain; e. K2 vs plain
+    # d. K4 vs plain; e. K2 vs plain; r. K2b and K7's sort, bit for bit
     check_k4(dev)
     k2_err = check_k2(weight_sets, g, dev)
+    check_k2b(dev)
+    check_sort(dev)
 
     # f. the serving path, counts from 0
     reset_counts()
@@ -1677,7 +1901,8 @@ def main() -> int:
                         a[0], a[1:], s), arg_sets) for s in k1.SHAPES},
                 **bound(batch * (80 + 1) * 4 + k2.N_PARAMS * 4,
                         batch * K1_FLOP, bw, flops)}
-    for batch in (TRAIN_BATCH, BULK_BATCH):
+    # B = 16: the mesh step's (K2b with one partial row)
+    for batch in (16, TRAIN_BATCH, BULK_BATCH):
         n_bufs = max(1, min(8, COLD_BYTES // (batch * 81 * 4)))
         arg_sets = [(torch.rand(batch, 16, 5, generator=g, device=dev),
                      (torch.rand(batch, generator=g, device=dev) > 0.5)
@@ -1722,7 +1947,7 @@ def main() -> int:
     timing["K8"] = k8_timing(frontier, torch.device("cuda", 0), bw, flops)
     print(json.dumps({"checker_timing": {
         k: {str(b): v for b, v in timing[k].items()}
-        for k in ("K5", "K6", "K7", "K8")}, "K3": k3}))
+        for k in ("K5", "K6", "K7", "K7_sort", "K8")}, "K3": k3}))
 
     # n. kernels line
     rows = [
@@ -1746,6 +1971,9 @@ def main() -> int:
         ("K7", "K7_mc_dedup", "mc_dedup.cu",
          "manatee_tpu/state/mc_array.py:1320",
          checker["launches"]["K7_hash"], 0.0),
+        ("K7_sort", "K7_mc_sort", "mc_sort.cu",
+         "manatee_tpu/state/mc_array.py:1339",
+         checker["launches"]["K7_sort"], 0.0),
         # K8 launches K5 and K6 on each shard: its launches are theirs in
         # phase p's sharded calls
         ("K8", "K8_mc_engine_sharded", "manatee_tpu_torch/state/mc_array.py",
@@ -1754,7 +1982,8 @@ def main() -> int:
     ]
     kernels = []
     for key, kname, src, replaces, n, err in rows:
-        batch = MC_BULK if key in ("K5", "K6", "K7", "K8") else BULK_BATCH
+        batch = {"K7_sort": 34 * MC_BULK}.get(key, MC_BULK if key in (
+            "K5", "K6", "K7", "K8") else BULK_BATCH)
         bulk = timing[key][batch]
         kernels.append({
             "name": kname, "route": "cuda",
@@ -1776,13 +2005,15 @@ def main() -> int:
     for row in kernels[:2]:
         row["launch_floor_ms"] = floor_ms
     kernels[1]["slice_parity_100_steps"] = parity_err
-    # K7 is two kernels around the sort, each counted at its launch and
-    # required above to equal the recorded dedup calls
+    # K7 is three kernels, each counted at its launch and required above
+    # to equal the recorded dedup calls; the sort has its own row too
     kernels[6]["hash_launches"] = checker["launches"]["K7_hash"]
+    kernels[6]["sort_launches"] = checker["launches"]["K7_sort"]
     kernels[6]["keep_launches"] = checker["launches"]["K7_keep"]
-    kernels[7]["k5_launches"] = sharded["launches"]["K5"]
-    kernels[7]["k6_launches"] = sharded["launches"]["K6"]
-    kernels[7]["sharded_calls"] = sharded["calls"]
+    kernels[6]["sort_source"] = "manatee_tpu_torch/kernels/csrc/mc_sort.cu"
+    kernels[8]["k5_launches"] = sharded["launches"]["K5"]
+    kernels[8]["k6_launches"] = sharded["launches"]["K6"]
+    kernels[8]["sharded_calls"] = sharded["calls"]
     # K3 is K2a + K2b per rank and one all-reduce: its launches are
     # theirs in phase q's rank path, its time one step at B = 16 (phase j)
     ranks = trained_ranks["rank_launches"]

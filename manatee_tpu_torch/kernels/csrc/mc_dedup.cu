@@ -8,8 +8,8 @@
 //   rows int32 (N, W), valid bool (N,)
 //   -> keep bool (N,) over the sorted order, order int64 (N,)
 //
-// Two kernels here; the stable sort between them is torch.sort (the one
-// step left to a library call, as the reference leaves it to XLA):
+// Two kernels here; the stable sort between them is the radix sort of
+// mc_sort.cu:
 // * mc_hash_kernel writes the sort key  (!valid << 32) | key  as int64,
 //   key = sum_k (uint32)row[k] * (((k+1) * 2654435761 mod 2^32) | 1)
 //   mod 2^32.  One stable sort on it orders rows as the reference's two

@@ -59,8 +59,13 @@
 // * Sums run in double (phase 2 and K2b): with float32 sums in a fixed
 //   order, 65,537 like rows drifted 1.2e-5 from the plain version's
 //   pairwise sums (measured on an H100), past the 1e-5 tolerance.
-// * K2b: one thread per entry reads the partials down its column
-//   (coalesced across the warp), in block order.
+// * K2b: an entry's sum is one double chain over the n partials in
+//   block order, so one thread runs it.  Bound: bytes (n x 14,728 read).
+//   A thread an entry reads its parameter before its sum, then its
+//   column in whole groups of kApplyWide rows and the rest kApplyGroup
+//   rows at a time (every path sends 1 row, the mesh step, or 4, a
+//   training step), a group's loads all before its first add.  Block
+//   size and group widths are a sweep's on an H100 (PERF.md).
 //
 // Plain C entry points, loaded with ctypes
 // (manatee_tpu_torch/kernels/mlp_train.py).
@@ -332,22 +337,22 @@ struct Params {
   float* out[6];
 };
 
-__global__ void mlp_sgd_apply_kernel(const float* __restrict__ partials,
-                                     float* __restrict__ sums, int n,
-                                     float scale, float lr, int apply,
-                                     Params params) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= kOut) return;
-  // in double, in block order: the sum of many like partials (rows that
-  // look alike) does not drift, and a rerun gives the same bits
-  double acc = 0.0;
-  for (int b = 0; b < n; ++b)
-    acc += partials[static_cast<long long>(b) * kOut + e];
-  // then one rounding per operation, as the plain version's torch ops
-  const float g = __fmul_rn(static_cast<float>(acc), scale);
-  sums[e] = g;
-  if (!apply || e >= kParams) return;
-  // constant indices only: the parameter struct stays in registers
+// K2b: a thread an entry, kApplyThreads a block; partial rows read
+// kApplyWide at a time while whole groups last, then kApplyGroup
+constexpr int kApplyThreads = 256;
+constexpr int kApplyWide = 32;
+constexpr int kApplyGroup = 4;
+
+// The parameter entry e updates, in the reference layout: the tensor,
+// its new tensor and the offset in both; constant indices only, so the
+// parameter struct stays in registers.
+struct Entry {
+  const float* p;
+  float* q;
+  int at;
+};
+
+__device__ __forceinline__ Entry entry_of(int e, const Params& params) {
   int i, at;
   if (e < kB1) { i = 0; at = e - kW1; }
   else if (e < kW2) { i = 1; at = e - kB1; }
@@ -361,7 +366,50 @@ __global__ void mlp_sgd_apply_kernel(const float* __restrict__ partials,
   float* q = i == 0 ? params.out[0] : i == 1 ? params.out[1]
            : i == 2 ? params.out[2] : i == 3 ? params.out[3]
            : i == 4 ? params.out[4] : params.out[5];
-  q[at] = __fsub_rn(p[at], __fmul_rn(lr, g));
+  return {p, q, at};
+}
+
+__global__ void __launch_bounds__(kApplyThreads)
+mlp_sgd_apply_kernel(const float* __restrict__ partials,
+                     float* __restrict__ sums, int n, float scale, float lr,
+                     int apply, Params params) {
+  const int e = blockIdx.x * kApplyThreads + threadIdx.x;
+  if (e >= kOut) return;
+  // the parameter, read before the sum needs it
+  Entry to{nullptr, nullptr, 0};
+  float old = 0.f;
+  if (apply && e < kParams) {
+    to = entry_of(e, params);
+    old = to.p[to.at];
+  }
+  // in double, in block order: the sum of many like partials (rows that
+  // look alike) does not drift, and a rerun gives the same bits.  A
+  // group's loads all go before its first add; its array is indexed by
+  // constants only (PERF.md: ptxas and run-time indices)
+  const float* col = partials + e;
+  double acc = 0.0;
+  int r0 = 0;
+  for (; r0 + kApplyWide <= n; r0 += kApplyWide) {
+    float x[kApplyWide];
+#pragma unroll
+    for (int r = 0; r < kApplyWide; ++r)
+      x[r] = col[static_cast<long long>(r0 + r) * kOut];
+#pragma unroll
+    for (int r = 0; r < kApplyWide; ++r) acc += x[r];
+  }
+  for (; r0 < n; r0 += kApplyGroup) {
+    float x[kApplyGroup];
+#pragma unroll
+    for (int r = 0; r < kApplyGroup; ++r)
+      x[r] = r0 + r < n ? col[static_cast<long long>(r0 + r) * kOut] : 0.f;
+#pragma unroll
+    for (int r = 0; r < kApplyGroup; ++r)
+      if (r0 + r < n) acc += x[r];
+  }
+  // then one rounding per operation, as the plain version's torch ops
+  const float g = __fmul_rn(static_cast<float>(acc), scale);
+  sums[e] = g;
+  if (to.q != nullptr) to.q[to.at] = __fsub_rn(old, __fmul_rn(lr, g));
 }
 
 // Runs launch() with `device` current and makes the caller's device current
@@ -418,11 +466,10 @@ extern "C" int mlp_sgd_apply_launch(
     int device, void* stream) {
   const Params params{{p0, p1, p2, p3, p4, p5},
                       {out0, out1, out2, out3, out4, out5}};
-  constexpr int kThreadsApply = 256;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    mlp_sgd_apply_kernel<<<(kOut + kThreadsApply - 1) / kThreadsApply,
-                           kThreadsApply, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    mlp_sgd_apply_kernel<<<(kOut + kApplyThreads - 1) / kApplyThreads,
+                           kApplyThreads, 0, st>>>(
         partials, sums, n, scale, lr, apply, params);
     return static_cast<int>(cudaGetLastError());
   });

@@ -11,16 +11,16 @@ the oracle's first-discovery order; a hash collision only splits a run
 and leaves an extra survivor for the host's exact seen-set, so the pass
 can never drop a state.
 
-``mc_dedup`` runs two CUDA kernels of ``csrc/mc_dedup.cu`` around one
-stable ``torch.sort``: the hash kernel writes the sort key
-``(!valid) << 32 | key`` as int64 (one stable sort on it gives the
-reference's two stable argsorts' order), and the keep kernel reads the
-sorted keys and compares a sorted row with the one before it only where
-their keys are equal (a different key proves different rows).  The sort
-is the one step left to a library call, as the reference leaves it to
-XLA.  ``dedup_plain`` computes the same with torch operators; torch has
-no uint32 multiply, so the key is built from 16-bit halves in int64,
-exact and without overflow.
+``mc_dedup`` runs three hand-written kernels: the hash kernel of
+``csrc/mc_dedup.cu`` writes the sort key ``(!valid) << 32 | key`` as
+int64 (one stable sort on it gives the reference's two stable argsorts'
+order), the radix sort of ``csrc/mc_sort.cu`` (``kernels/mc_sort.py``)
+sorts it stably, and the keep kernel reads the sorted keys and compares
+a sorted row with the one before it only where their keys are equal (a
+different key proves different rows).  ``dedup_plain`` computes the same
+with torch operators, the sort with ``torch.sort``; torch has no uint32
+multiply, so the key is built from 16-bit halves in int64, exact and
+without overflow.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from manatee_tpu_torch.kernels import nvcc
+from manatee_tpu_torch.kernels.mc_sort import mc_sort
 from manatee_tpu_torch.kernels.mlp_forward import check_inputs
 
 GOLDEN = 2654435761
@@ -152,11 +153,11 @@ def mc_keep(flat: torch.Tensor, skeys: torch.Tensor,
 
 
 def mc_dedup(flat: torch.Tensor, valid: torch.Tensor):
-    """K7 on the current stream: hash kernel, one stable torch.sort,
-    keep kernel on the sorted keys.  -> keep (N,) bool, order (N,)
-    int64.  The launches are counted where they happen, in
-    ``mc_sort_keys`` and ``mc_keep``."""
-    skeys, order = torch.sort(mc_sort_keys(flat, valid), stable=True)
+    """K7 on the current stream: hash kernel, radix sort, keep kernel on
+    the sorted keys.  -> keep (N,) bool, order (N,) int64.  The launches
+    are counted where they happen, in ``mc_sort_keys``, ``mc_sort`` and
+    ``mc_keep``."""
+    skeys, order = mc_sort(mc_sort_keys(flat, valid))
     return mc_keep(flat, skeys, order), order
 
 

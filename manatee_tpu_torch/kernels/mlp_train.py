@@ -106,6 +106,24 @@ def sgd_apply_plain(partials: torch.Tensor, scale: float,
     return sums, tuple(p - lr * g for p, g in zip(params, unflatten(sums)))
 
 
+def sgd_apply_block_order(partials: torch.Tensor, scale: float,
+                          params: tuple | None = None, lr: float = 0.0):
+    """K2b's own arithmetic in torch, its bits on any device: each sum
+    one double chain over the n partials in block order, rounded to
+    float32 and multiplied by *scale* in float32, then ``p - lr * g`` a
+    float32 operation at a time.  -> as ``sgd_apply_plain``."""
+    acc = torch.zeros(partials.shape[1], dtype=torch.float64,
+                      device=partials.device)
+    for row in partials.double():
+        acc += row
+    f32 = dict(dtype=torch.float32, device=partials.device)
+    sums = acc.float() * torch.tensor(scale, **f32)
+    if params is None:
+        return sums, None
+    step = torch.tensor(lr, **f32)
+    return sums, tuple(p - step * g for p, g in zip(params, unflatten(sums)))
+
+
 def _library() -> ctypes.CDLL:
     lib = nvcc.load("mlp_train")
     if lib.mlp_train_partials_launch.argtypes is None:

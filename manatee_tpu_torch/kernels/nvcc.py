@@ -24,7 +24,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every kernel source of the port, csrc/<name>.cu
 KERNELS = ("mlp_forward", "mlp_train", "synthetic_batch", "mc_array",
-           "mc_dedup")
+           "mc_dedup", "mc_sort")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

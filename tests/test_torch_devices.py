@@ -63,13 +63,15 @@ def test_rejected(monkeypatch, device, error, match):
 
 
 def _launches(dev):
-    """One launch of each kernel of the five libraries on *dev*."""
+    """One launch of each kernel of the six libraries on *dev* (K7's
+    sort in both its plans)."""
     from manatee_tpu_torch.health.predictor import (
         init_params,
         synthetic_draws,
     )
     from manatee_tpu_torch.kernels import (
         mc_dedup,
+        mc_sort,
         mc_step,
         mlp_forward,
         mlp_train,
@@ -88,7 +90,10 @@ def _launches(dev):
     knobs = torch.from_numpy(ma.make_knobs(cfg)).to(dev)
     ch, _vi, en = mc_step.mc_step(vs, knobs, 3)
     flat, valid = ch.view(-1, ch.shape[-1]), en.reshape(-1)
-    skeys, order = torch.sort(mc_dedup.mc_sort_keys(flat, valid), stable=True)
+    keys = mc_dedup.mc_sort_keys(flat, valid)
+    skeys, order = mc_sort.mc_sort(keys)
+    big = torch.randint(0, 2**33, (mc_sort.CLUSTER * mc_sort.TILE + 1,),
+                        generator=g, device=dev)
     partials = mlp_train.mlp_train_partials(x, y, *w)
     return {
         "K1": lambda: mlp_forward.mlp_forward(x, *w),
@@ -99,6 +104,8 @@ def _launches(dev):
         "K5": lambda: mc_step.mc_step(vs, knobs, 3),
         "K6": lambda: mc_step.mc_liveness(vs, knobs, 3),
         "K7_hash": lambda: mc_dedup.mc_sort_keys(flat, valid),
+        "K7_sort": lambda: mc_sort.mc_sort(keys),
+        "K7_sort_tiles": lambda: mc_sort.mc_sort(big),
         "K7_keep": lambda: mc_dedup.mc_keep(flat, skeys, order),
     }
 

@@ -1,8 +1,9 @@
 """The model checker's kernels, K5 and K6 (kernels/mc_step.py) and K7
-(kernels/mc_dedup.py): their wrappers' input checks, properties of their
-plain versions on the CPU, and, on a machine with a CUDA card, each
-kernel against its plain version on real frontier chunks and the whole
-explorer on the card against the CPU.
+(kernels/mc_dedup.py, its radix sort kernels/mc_sort.py): their wrappers'
+input checks, properties of their plain versions on the CPU, a numpy
+model of the radix sort's passes, and, on a machine with a CUDA card,
+each kernel against its plain version on real frontier chunks and the
+whole explorer on the card against the CPU.
 
 This file imports no jax and needs no conftest, so it also runs on a
 machine with a CUDA card:
@@ -12,6 +13,7 @@ machine with a CUDA card:
 runs the card tests there; on a machine without CUDA they skip.
 """
 
+import ast
 import re
 from pathlib import Path
 
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from manatee_tpu_torch.kernels import mc_dedup, mc_step, nvcc
+from manatee_tpu_torch.kernels import mc_dedup, mc_sort, mc_step, nvcc
 from manatee_tpu_torch.state import canon
 from manatee_tpu_torch.state import mc_array as ma
 from manatee_tpu_torch.state import modelcheck as mc
@@ -98,8 +100,8 @@ def test_cuda_constants_match_the_python_layout():
 
 
 def test_kernel_sources_are_built_and_digested():
-    assert {"mc_array", "mc_dedup"} <= set(nvcc.KERNELS)
-    for name in ("mc_array", "mc_dedup"):
+    assert {"mc_array", "mc_dedup", "mc_sort"} <= set(nvcc.KERNELS)
+    for name in ("mc_array", "mc_dedup", "mc_sort"):
         assert (CSRC / f"{name}.cu").exists()
         # no shared header: each library's digest covers all its source
         assert "#include \"" not in (CSRC / f"{name}.cu").read_text()
@@ -314,7 +316,8 @@ def test_dedup_wrapper_rejects_cpu_and_wrong_types():
 
 def _launch_counts():
     return (mc_step.mc_step.launches, mc_step.mc_liveness.launches,
-            mc_dedup.mc_sort_keys.launches, mc_dedup.mc_keep.launches)
+            mc_dedup.mc_sort_keys.launches, mc_sort.mc_sort.launches,
+            mc_dedup.mc_keep.launches)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -333,6 +336,176 @@ def test_cpu_tensors_take_the_plain_versions():
                     mc_dedup.dedup_plain(flat, valid)):
         assert torch.equal(a, b)
     assert before == _launch_counts()
+
+
+# -- K7's radix sort (kernels/mc_sort.py, csrc/mc_sort.cu) -------------------
+
+
+def test_sort_constants_match_the_source():
+    src = (CSRC / "mc_sort.cu").read_text()
+    c = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert (c["kThreads"], c["kItems"], c["kPasses"]) == (
+        mc_sort.THREADS, mc_sort.ITEMS, mc_sort.PASSES)
+    assert 1 << c["kDigitBits"] == mc_sort.DIGITS
+    # three digits cover the key's 33 bits: (!valid) << 32 | hash32
+    assert c["kPasses"] * c["kDigitBits"] == 33
+    # the wrapper plans for the source's cluster, a portable size
+    assert c["kCluster"] == mc_sort.CLUSTER <= 8
+
+
+def test_sort_plan_holds_the_checkers_chunk_in_one_cluster():
+    cap = mc_sort.CLUSTER * mc_sort.TILE
+    chunk = 1024 * len(ma.slot_table(4))         # the probe's 34,816 keys
+    assert cap == 69_632
+    for n in (1, mc_sort.TILE, chunk, cap):
+        assert mc_sort.plan(n) == "cluster"
+    for n in (cap + 1, 2_228_224):
+        assert mc_sort.plan(n) == "tiles"
+
+
+def _digit(pass_, hash_, inv):
+    if pass_ < 2:
+        return (hash_ >> (11 * pass_)) & 2047
+    return (hash_ >> 22) | (inv << 10)
+
+
+def radix_model(keys: np.ndarray, group: int):
+    """mc_sort.cu's three passes in numpy, position by position as the
+    kernels compute them: the current order cut into groups of *group*
+    keys (a cluster's CTA shares, or the tiles), each group into
+    ``THREADS // 32`` warp runs taken 32 keys a round; a key goes to its
+    digit's start + the group's keys of that digit in earlier groups +
+    the warp's start in the group + its rank in the warp.  -> (sorted
+    keys, order), int64 each."""
+    n = len(keys)
+    warps = mc_sort.THREADS // 32
+    hash_, inv = keys & 0xFFFFFFFF, keys >> 32
+    idx = np.arange(n, dtype=np.int64)
+    p = np.arange(n)
+    g = p // group
+    local = p - g * group
+    count = np.minimum(group, n - g * group)
+    per_warp = -(-count // warps)
+    w = local // np.maximum(per_warp, 1)
+    # a warp takes at most ITEMS rounds of 32: a group fits in one CTA
+    assert (per_warp <= 32 * mc_sort.ITEMS).all()
+    for pass_ in range(mc_sort.PASSES):
+        d = _digit(pass_, hash_, inv)
+        n_groups = int(g.max()) + 1 if n else 0
+        hist = np.zeros((n_groups, warps, mc_sort.DIGITS), np.int64)
+        np.add.at(hist, (g, w, d), 1)
+        by_group = hist.sum(1)
+        digit_start = np.concatenate([[0], np.cumsum(by_group.sum(0))[:-1]])
+        group_start = np.cumsum(by_group, 0) - by_group
+        warp_start = np.cumsum(hist, 1) - hist
+        # the rank in the warp: keys of the same digit before it in the
+        # run (rounds in order, lanes in order), what __match_any_sync
+        # and the warp's counts give
+        srt = np.lexsort((p, d, w, g))
+        grp = (g[srt] * warps + w[srt]) * mc_sort.DIGITS + d[srt]
+        first = np.r_[True, grp[1:] != grp[:-1]] if n else grp
+        run_start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+        rank = np.empty(n, np.int64)
+        rank[srt] = np.arange(n) - run_start
+        pos = digit_start[d] + group_start[g, d] + warp_start[g, w, d] + rank
+        assert np.array_equal(np.sort(pos), p)        # a permutation
+        hash_, inv, idx = _scatter(pos, hash_, inv, idx)
+    return (inv << 32) | hash_, idx
+
+
+def _scatter(pos, *arrays):
+    out = []
+    for a in arrays:
+        b = np.empty_like(a)
+        b[pos] = a
+        out.append(b)
+    return out
+
+
+def sort_keys(kind: str, n: int, seed: int = 0) -> np.ndarray:
+    """Sort keys as the hash kernel writes them, < 2**33, of a kind."""
+    rng = np.random.default_rng(seed)
+    hash_ = rng.integers(0, 2**32, n, dtype=np.int64)
+    invalid = rng.random(n) < 0.88          # the probe: ~12% valid
+    if kind == "random":
+        return rng.integers(0, 2**33, n, dtype=np.int64)
+    if kind == "ties":                      # a few keys, long equal runs
+        return rng.choice(rng.integers(0, 2**33, 5), n)
+    if kind == "all_invalid":
+        return (1 << 32) | rng.choice(hash_[:max(n // 8, 1)], n)
+    if kind == "bit32_only":
+        return rng.integers(0, 2, n, dtype=np.int64) << 32
+    assert kind == "checker"
+    return (invalid.astype(np.int64) << 32) | rng.choice(
+        hash_[:max(n // 3, 1)], n)
+
+
+SORT_KINDS = ("random", "ties", "all_invalid", "bit32_only", "checker")
+
+
+@pytest.mark.parametrize("kind", SORT_KINDS)
+@pytest.mark.parametrize("n", [0, 1, 34_816, 69_633])
+def test_radix_model_orders_keys_as_a_stable_sort(kind, n):
+    """The passes' arithmetic, in the regime the wrapper plans for n
+    (a cluster's CTA shares, or tiles), gives torch.sort(stable=True)'s
+    keys and order exactly."""
+    keys = sort_keys(kind, n)
+    want = torch.sort(torch.from_numpy(keys), stable=True)
+    group = (-(-n // mc_sort.CLUSTER) if mc_sort.plan(n) == "cluster"
+             else mc_sort.TILE)
+    skeys, order = radix_model(keys, max(group, 1))
+    assert np.array_equal(skeys, want.values.numpy())
+    assert np.array_equal(order, want.indices.numpy())
+
+
+def _calls_in(path: Path, names) -> dict:
+    """{function: names of the calls in its body} for *names* of a module."""
+    tree = ast.parse(path.read_text())
+    out = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name in names:
+            out[node.name] = {
+                c.func.attr if isinstance(c.func, ast.Attribute)
+                else getattr(c.func, "id", "")
+                for c in ast.walk(node) if isinstance(c, ast.Call)}
+    return out
+
+
+def test_k7_card_path_makes_no_library_sort():
+    """mc_dedup and mc_sort, K7 on a CUDA tensor, call no sort, argsort,
+    unique or topk: the sort is the hand-written kernel."""
+    kernels = REPO / "manatee_tpu_torch/kernels"
+    calls = {**_calls_in(kernels / "mc_dedup.py",
+                         ("mc_dedup", "mc_sort_keys", "mc_keep")),
+             **_calls_in(kernels / "mc_sort.py", ("mc_sort",))}
+    assert set(calls) == {"mc_dedup", "mc_sort_keys", "mc_keep", "mc_sort"}
+    banned = {"sort", "argsort", "msort", "unique", "unique_consecutive",
+              "topk", "kthvalue"}
+    for fn, names in calls.items():
+        assert not names & banned, (fn, names & banned)
+    assert "mc_sort" in calls["mc_dedup"]
+
+
+@pytest.mark.parametrize("case", ["cpu_tensor", "int32", "two_dims",
+                                  "non_contiguous"])
+def test_sort_wrapper_rejects_before_loading(case, monkeypatch):
+    def no_build(name):
+        raise AssertionError("loaded %s" % name)
+
+    monkeypatch.setattr(nvcc, "load", no_build)
+    keys, err, match = torch.zeros(6, dtype=torch.int64), ValueError, \
+        "CUDA kernel"
+    if case == "int32":
+        keys, err, match = keys.int(), TypeError, "int64"
+    elif case == "two_dims":
+        keys, match = torch.zeros(2, 3, dtype=torch.int64), "shape"
+    elif case == "non_contiguous":
+        keys, match = torch.zeros(12, dtype=torch.int64)[::2], "contiguous"
+    before = mc_sort.mc_sort.launches
+    with pytest.raises(err, match=match):
+        mc_sort.mc_sort(keys)
+    assert mc_sort.mc_sort.launches == before
 
 
 # -- on the card ---------------------------------------------------------------
@@ -389,6 +562,31 @@ def test_kernels_match_plain_on_cuda(name, mut):
         assert torch.equal(lv, mc_step.liveness_plain(vc, kc, P))
         k2, o2 = mc_dedup.dedup_plain(flat, valid)
         assert torch.equal(keep, k2) and torch.equal(order, o2)
+
+
+# the hand sort's sizes: tiny, around a warp and a round, the checker's
+# chunk, the cluster path's capacity either side, the tiled path
+SORT_SIZES = (0, 1, 2, 31, 32, 33, 1023, 1024, 2047, 34_816,
+              mc_sort.CLUSTER * mc_sort.TILE - 1,
+              mc_sort.CLUSTER * mc_sort.TILE,
+              mc_sort.CLUSTER * mc_sort.TILE + 1, 65_537, 2_228_224)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SORT_SIZES)
+def test_hand_sort_equals_torch_sort_on_cuda(n):
+    """mc_sort equals torch.sort(stable=True) bit for bit on every kind
+    of key, in the plan its size gives."""
+    _needs_cuda()
+    for kind in SORT_KINDS:
+        keys = torch.from_numpy(sort_keys(kind, n)).cuda()
+        want = torch.sort(keys, stable=True)
+        before = mc_sort.mc_sort.launches
+        skeys, order = mc_sort.mc_sort(keys)
+        torch.cuda.synchronize()
+        assert mc_sort.mc_sort.launches == before + (1 if n else 0)
+        assert torch.equal(skeys, want.values), (kind, mc_sort.plan(n))
+        assert torch.equal(order, want.indices), (kind, mc_sort.plan(n))
 
 
 @pytest.mark.cuda

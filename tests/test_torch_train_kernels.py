@@ -28,6 +28,7 @@ from manatee_tpu_torch.kernels.mlp_train import (
     grad_sums_plain,
     mlp_sgd_apply,
     mlp_train_partials,
+    sgd_apply_block_order,
     sgd_apply_plain,
     unflatten,
 )
@@ -169,6 +170,32 @@ def test_sgd_apply_plain_reduces_and_updates():
         assert q.shape == p.shape and torch.equal(q, p - 0.1 * g)
 
 
+# K2b's partial rows, as chip_smoke.py: one (the mesh step's apply), a
+# training step's 4, whole and partial groups of 4 and of 32 rows
+# (csrc/mlp_train.cu kApplyGroup, kApplyWide), `health/train.py --batch`
+# 513 to 4,096 (n = ceil(B/64): 9 to 64) and the 65,536-row batch's
+# 1,024
+K2B_ROWS = (1, 4, 5, 8, 9, 32, 33, 64, 1024, 1025, 4097)
+
+
+@pytest.mark.parametrize("n", K2B_ROWS)
+def test_block_order_reference_agrees_with_the_plain_step(n):
+    """K2b's block-order reference (one double chain an entry, then a
+    float32 scale) is the plain step's function: within 1e-5 of
+    sgd_apply_plain's float32 pairwise sums, scale 1 and 1/256."""
+    g = torch.Generator().manual_seed(n)
+    partials = torch.randn(n, GRAD_SIZE, generator=g) / 8
+    w = _weights()
+    for scale in (1.0, 1 / 256):
+        sums, new = sgd_apply_block_order(partials, scale, w, 0.05)
+        want_sums, want = sgd_apply_plain(partials, scale, w, 0.05)
+        assert sums.dtype == torch.float32 and sums.shape == (GRAD_SIZE,)
+        assert float((sums - want_sums).abs().max()) <= 1e-5
+        for a, b in zip(new, want):
+            assert a.shape == b.shape and float((a - b).abs().max()) <= 1e-5
+        assert sgd_apply_block_order(partials, scale)[1] is None
+
+
 # ---- on the card (skip without CUDA) --------------------------------
 
 # as chip_smoke.py: the main path's batches, and edge and bulk sizes;
@@ -232,6 +259,30 @@ def test_train_step_kernels_match_plain_on_cuda(batch, kind):
                 assert float((a - b).abs().max()) <= 1e-5
                 assert torch.equal(a, c)          # no atomics: same bits
             assert torch.equal(loss, loss2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K2B_ROWS)
+def test_sgd_apply_equals_the_block_order_reference_on_cuda(n):
+    """K2b's sums and new tensors equal its block-order reference bit
+    for bit, with and without parameters, scale 1 and 1/256."""
+    _needs_cuda()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    partials = 3 * torch.randn(n, GRAD_SIZE, generator=g, device="cuda")
+    w = _weights("cuda")
+    for scale in (1.0, 1 / 256):
+        for params in (None, w):
+            before = mlp_sgd_apply.launches
+            sums, new = mlp_sgd_apply(partials, scale, params, 0.05)
+            want_sums, want = sgd_apply_block_order(partials, scale,
+                                                    params, 0.05)
+            torch.cuda.synchronize()
+            assert mlp_sgd_apply.launches == before + 1
+            assert torch.equal(sums, want_sums), (scale, params is None)
+            if params is None:
+                assert new is None and want is None
+            else:
+                assert all(torch.equal(a, b) for a, b in zip(new, want))
 
 
 @pytest.mark.cuda
