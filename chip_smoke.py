@@ -40,13 +40,16 @@ phase catches its own failure:
   h. the training path, launch counts set to 0 just before it:
      health.train.main at the `make train-health` configuration (300
      steps of 256, recorded mix r4/s2/s3) on the card, then evaluate()
-     and evaluate_recorded on the held-out s4/s5; check the counts, that
-     a second train() exports the same bytes, that the plain version on
+     and evaluate_recorded on the held-out s4/s5; check the counts (K1
+     once an evaluate() trace), that evaluate(60)'s one score_many call
+     a trace gives the windows and scores, bit for bit, of a score()
+     call a tick as the ring forms them and the CPU's dict, that a
+     second train() exports the same bytes, that the plain version on
      the CPU, fed the card's batches, ends within TOL of the card, and
      the quality bar over five seeds (each also trained on the CPU, for
      comparison); K1 launched in the shape its plan gives each of the
-     path's batches (evaluate's 1, train()'s held-out 2,048); then
-     dryrun_multichip(1) on NCCL;
+     path's batches (an evaluate() trace's 45, train()'s held-out
+     2,048); then dryrun_multichip(1) on NCCL;
   i. whole-slice parity: 100 train steps on the card from the packaged
      weights against the same steps of the plain version on the CPU;
   j. K3: one mesh step of dryrun_multichip(1)'s rank on NCCL at B = 16,
@@ -140,13 +143,16 @@ from manatee_tpu_torch.profiling import (
 
 REPO = Path(__file__).resolve().parent
 TOL = 1e-5                       # kernel vs plain, fp32 sums in another order
+# evaluate()'s ready windows a trace at its defaults (40 healthy + 12
+# ramp ticks, the ring ready from tick WINDOW // 2 = 8): one K1 call each
+EVAL_ROWS = 40 + 12 - (16 // 2 - 1)
 # every batch the main path gives a kernel, and edge and bulk sizes:
-# K1 1 (evaluate's ticks), 64 (entry), 2048 (held-out accuracy), each
-# recorded trace's (added in phase c); K4 16 (dryrun_multichip), 64
-# (entry), 249 (a training step), 2048 (held-out accuracy), and odd
-# batches and partial blocks of 8 windows; K2 16
+# K1 1 (a sitter's tick), 45 (an evaluate() trace), 64 (entry), 2048
+# (held-out accuracy), each recorded trace's (added in phase c); K4 16
+# (dryrun_multichip), 64 (entry), 249 (a training step), 2048 (held-out
+# accuracy), and odd batches and partial blocks of 8 windows; K2 16
 # (dryrun_multichip's one rank), 256 (a training step)
-CHECK_BATCHES = (1, 63, 64, 96, 2048, 4458, 65537)
+CHECK_BATCHES = (1, EVAL_ROWS, 63, 64, 96, 2048, 4458, 65537)
 K4_BATCHES = (1, 2, 3, 7, 15, 16, 17, 64, 249, 255, 256, 257, 2048, 65537)
 # K2a at 65 and 128: partial tiles, several entry slices a tile
 K2_BATCHES = (1, 7, 16, 65, 128, 249, 256, 4096, 65537)
@@ -161,7 +167,7 @@ BULK_BATCH = 65536               # the batch the kernels line reports
 K4_TIMED = (249, TRAIN_BATCH, BULK_BATCH)   # a step's rows, 256, bulk
 # K1's timed batches (+ the largest trace's): the paths' and, around the
 # crossover, those that chose it
-K1_TIMED = (1, 64, 2048, 4096, 8192, 16384, BULK_BATCH)
+K1_TIMED = (1, EVAL_ROWS, 64, 2048, 4096, 8192, 16384, BULK_BATCH)
 COLD_BYTES = 128 << 20           # input buffers cycled when timing: > L2
 # published peaks (NVIDIA's H100 data sheet): device-memory bytes/s, fp32
 # and fp64 non-tensor FLOP/s
@@ -457,6 +463,61 @@ def passes_bar(ev: dict) -> bool:
             and ev["false_positive_rate"] <= 0.01)
 
 
+def check_evaluate_batching(train, weights, ev: dict, dev) -> dict:
+    """evaluate(60, seed 7) again with the windows gathered tick by tick
+    as the ring forms them, each scored by its own TorchScorer.score call
+    (a sitter's tick), and evaluate's one score_many call a trace
+    recorded: the same windows, the scores equal bit for bit, the dict
+    equal to the main path's *ev* and to the same evaluate on the CPU."""
+    per_tick = train.TorchScorer(weights, device=dev)
+    ticks: list[np.ndarray] = []
+    tick_scores: list[float] = []
+    batches: list[tuple[np.ndarray, np.ndarray]] = []
+
+    class TickRing(train.TelemetryRing):
+        def window_array(self):
+            window = super().window_array()
+            ticks.append(window)
+            tick_scores.append(per_tick.score(window))
+            return window
+
+    class Recording(train.TorchScorer):
+        def score(self, window):
+            raise AssertionError("evaluate scored a single tick")
+
+        def score_many(self, windows):
+            scores = super().score_many(windows)
+            batches.append((windows, scores))
+            return scores
+
+    ring, scorer = train.TelemetryRing, train.TorchScorer
+    train.TelemetryRing, train.TorchScorer = TickRing, Recording
+    try:
+        got = train.evaluate(weights, n_traces=60, seed=7, device=dev)
+    finally:
+        train.TelemetryRing, train.TorchScorer = ring, scorer
+    on_cpu = train.evaluate(weights, n_traces=60, seed=7, device="cpu")
+    rows = [len(w) for w, _s in batches]
+    batched = np.concatenate([s for _w, s in batches])
+    per = np.asarray(tick_scores, np.float32)
+    require(rows == [EVAL_ROWS] * 60,
+            "evaluate(60) scored %s windows a call" % rows)
+    require(np.array_equal(np.concatenate([w for w, _s in batches]),
+                           np.stack(ticks)),
+            "evaluate's batched windows differ from the ring's ticks")
+    require(batched.dtype == np.float32 and np.array_equal(
+        batched.view(np.uint32), per.view(np.uint32)),
+        "batched scores differ from per-tick score() on the card: %d of "
+        "%d" % (int((batched != per).sum()), len(per)))
+    require(got == ev, "evaluate(60) again: %s, main path %s" % (got, ev))
+    require(on_cpu == ev, "evaluate(60) on the cpu: %s, card %s"
+            % (on_cpu, ev))
+    print("train path: evaluate(60, seed 7) scored %d windows in %d "
+          "score_many calls, equal bit for bit to a score() call a tick; "
+          "the dict equals the cpu's" % (len(per), len(rows)))
+    return {"windows": len(per), "score_many_calls": len(rows)}
+
+
 def training_path(dirs, dev) -> dict:
     """h. The training path on the card, counts from 0, and its checks."""
     from manatee_tpu_torch.graft_entry import dryrun_multichip
@@ -481,13 +542,20 @@ def training_path(dirs, dev) -> dict:
         print("train path: evaluate(60, seed 7) %s" % json.dumps(ev))
         print("train path: held-out s4+s5 %s" % json.dumps(ev_held))
         steps = 300
-        # K1: evaluate's one window a tick, and train()'s held-out 2,048
+        # K1: train()'s held-out 2,048, a call a trace of main's evaluate
+        # (200) and of evaluate(60), at EVAL_ROWS windows each, and one a
+        # held-out recorded trace with a ready window
+        held_calls = sum(1 for f in held_out
+                         if train.ready_windows(train._load_ticks(f))[1])
+        k1_calls = 1 + 200 + 60 + held_calls
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        shapes = {k1.launch_plan(n, sms)[0] for n in (1, 2048)}
+        shapes = {k1.launch_plan(n, sms)[0] for n in (EVAL_ROWS, 2048)}
         require(counts["K2a"] == steps and counts["K2b"] == steps
-                and counts["K4"] == steps + 1 and counts["K1"] > 0
+                and counts["K4"] == steps + 1 and counts["K1"] == k1_calls
                 and all(counts["K1_by_shape"][s] > 0 for s in shapes),
-                "training path launches %s" % counts)
+                "training path launches %s, expected K1 %d"
+                % (counts, k1_calls))
+        batching = check_evaluate_batching(train, out, ev, dev)
 
         # determinism: the same seed exports the same bytes
         recorded = train.recorded_windows(mix)
@@ -536,6 +604,7 @@ def training_path(dirs, dev) -> dict:
                 "FPR %g)" % (r["seed"], r, packaged["false_positive_rate"]))
     dryrun_multichip(1, device=dev)
     return {"launches": counts, "seconds": path_s, "evaluate": ev,
+            "evaluate_batching": batching,
             "card_vs_cpu_training_max_abs_err": cpu_err,
             "held_out": ev_held,
             "packaged_held_out_fpr": packaged["false_positive_rate"],
@@ -1806,7 +1875,7 @@ def main() -> int:
     print(json.dumps({"train_profile": profile_run(
         lambda: train(recorded=rec)), "train_wall_s": train_wall_s}))
     # evaluate(60, seed 7) on the packaged weights: 2,700 scored ticks,
-    # each one window through K1 and back to the host
+    # a trace's 45 windows through K1 and back to the host in one call
     t0 = time.perf_counter()
     evaluate(n_traces=60, seed=7)
     torch.cuda.synchronize()

@@ -14,11 +14,11 @@ the batch: one rank each (``distributed.run_ranks``, NCCL on cards,
 gloo on the CPU), each stepping on its block of every batch through
 ``make_mesh_train_step`` (K2a + K2b per rank and one all-reduce, K3).
 ``export`` writes the .npz the scorers load.
-``evaluate`` feeds simulated probe ticks through the deployed ring and
-scorer, one ``predict`` call (one K1 launch on CUDA) per scored tick, as
-a sitter scores.  ``evaluate_recorded`` replays recorded telemetry
-dumps, one ``predict`` call per trace.  Each returns the reference's
-dict.
+``evaluate`` feeds simulated probe ticks through the deployed ring, tick
+by tick as a sitter does, and scores each trace's windows in one
+``predict`` call (one K1 launch on CUDA).  ``evaluate_recorded`` replays
+recorded telemetry dumps, one ``predict`` call per trace.  Each returns
+the reference's dict.
 """
 
 from __future__ import annotations
@@ -271,8 +271,7 @@ def evaluate(weights_path=None, *, n_traces: int = 200, ramp: int = 12,
              status_every: int | None = None,
              device: str | torch.device | None = None) -> dict:
     """Evaluation through the DEPLOYED path: simulated probe ticks fed
-    through the same TelemetryRing and scorer a sitter runs, one window
-    scored per tick, measuring
+    through the same TelemetryRing and scorer a sitter runs, measuring
 
     * detection rate: fraction of degradation traces whose score crosses
       WARN_THRESHOLD before the hard failure at ramp end;
@@ -282,7 +281,12 @@ def evaluate(weights_path=None, *, n_traces: int = 200, ramp: int = 12,
     Degradation traces ramp latency/timeouts/lag/stalls over *ramp*
     ticks, the signature synthetic_batch trains on; the hard failure is
     at the end of the ramp.  *status_every* mirrors the manager's cadence:
-    lag/WAL reach the ring only on every Nth successful probe."""
+    lag/WAL reach the ring only on every Nth successful probe.
+
+    The windows form tick by tick, exactly as a sitter's ring forms them;
+    no draw depends on a score, so each trace's ready windows are scored
+    together in one ``score_many`` call, with the scores a ``score`` call
+    a tick gives."""
     if status_every is None:
         status_every = STATUS_EVERY
     rng = np.random.default_rng(seed)
@@ -299,6 +303,8 @@ def evaluate(weights_path=None, *, n_traces: int = 200, ramp: int = 12,
         ring = TelemetryRing()
         lsn = 0
         tick_no = 0
+        windows: list[np.ndarray] = []
+        ramp_at: list[int | None] = []    # None on a healthy tick, else j
 
         def add(ring, *, latency_ms, timed_out, lag_s, wal_lsn,
                 in_recovery=True):
@@ -320,12 +326,9 @@ def evaluate(weights_path=None, *, n_traces: int = 200, ramp: int = 12,
             add(ring, latency_ms=5 + 25 * rng.random(),
                 timed_out=False, lag_s=0.05 * rng.random(), wal_lsn=lsn)
             if ring.ready():
-                s = scorer.score(ring.window_array())
-                healthy_scored += 1
-                if s is not None and s > WARN_THRESHOLD:
-                    fp_ticks += 1
+                windows.append(ring.window_array())
+                ramp_at.append(None)
         # degradation ending in the hard failure at tick `ramp`
-        warn_at = None
         for j in range(ramp):
             f = (j + 1) / ramp
             add(ring,
@@ -333,11 +336,20 @@ def evaluate(weights_path=None, *, n_traces: int = 200, ramp: int = 12,
                 timed_out=rng.random() < 0.6 * f,
                 lag_s=10.0 * f * rng.random(),
                 wal_lsn=lsn)              # WAL stops advancing
-            if not ring.ready():
-                continue   # the deployed path never scores a cold ring
-            s = scorer.score(ring.window_array())
-            if warn_at is None and s is not None and s > WARN_THRESHOLD:
-                warn_at = j
+            if ring.ready():   # the deployed path never scores a cold ring
+                windows.append(ring.window_array())
+                ramp_at.append(j)
+        warn_at = None
+        if windows:
+            # compared as Python floats, as score() returns them
+            scores = scorer.score_many(np.stack(windows)).tolist()
+            for j, s in zip(ramp_at, scores):
+                if j is None:
+                    healthy_scored += 1
+                    if s > WARN_THRESHOLD:
+                        fp_ticks += 1
+                elif warn_at is None and s > WARN_THRESHOLD:
+                    warn_at = j
         # lead counts ticks strictly BEFORE the hard failure (which
         # fires on the final ramp tick, index ramp-1)
         if warn_at is not None and warn_at < ramp - 1:

@@ -23,6 +23,7 @@ from manatee_tpu_torch.health.convert import (
     params_from_numpy,
     params_to_numpy,
 )
+from manatee_tpu_torch.health.telemetry import DEFAULT_WEIGHTS
 from manatee_tpu_torch.kernels.mlp_train import (
     GRAD_SIZE,
     grad_sums_plain,
@@ -159,6 +160,74 @@ def test_recorded_windows_match_reference(include_positives):
 def test_evaluate_matches_reference():
     want = ref_train.evaluate(n_traces=60, seed=7)
     assert port_train.evaluate(n_traces=60, seed=7, device="cpu") == want
+
+
+@pytest.fixture(scope="module")
+def weight_files(tmp_path_factory):
+    """Weights files by name: None for the packaged weights; "trained"
+    from a 20-step train() of the port on the CPU; "biased" the packaged
+    weights with b3 raised by 4.8, which puts some healthy ticks' scores
+    above WARN_THRESHOLD (false positives) and warns earlier."""
+    tmp = tmp_path_factory.mktemp("weights")
+    model, _loss, _acc = port_train.train(steps=20, device="cpu")
+    port_train.export(model, tmp / "trained.npz")
+    with np.load(DEFAULT_WEIGHTS) as z:
+        params = {k: z[k] for k in z.files}
+    params["b3"] = params["b3"] + np.float32(4.8)
+    np.savez(tmp / "biased.npz", **params)
+    return {"packaged": None, "trained": tmp / "trained.npz",
+            "biased": tmp / "biased.npz"}
+
+
+# (weights, evaluate keywords): healthy_ticks 0 and 3 leave the first
+# ramp ticks cold; 3 with ramp 4 leaves a trace no ready window at all
+EVALUATE_CASES = [
+    ("packaged", dict(n_traces=200, seed=0)),
+    ("trained", dict(n_traces=60, seed=7)),
+    ("biased", dict(n_traces=40, seed=2)),
+    ("biased", dict(n_traces=40, seed=3, status_every=1)),
+    ("biased", dict(n_traces=40, seed=4, status_every=3)),
+    ("biased", dict(n_traces=40, seed=5, ramp=4)),
+    ("packaged", dict(n_traces=40, seed=6, healthy_ticks=0)),
+    ("packaged", dict(n_traces=40, seed=8, healthy_ticks=3)),
+    ("packaged", dict(n_traces=10, seed=9, healthy_ticks=3, ramp=4)),
+]
+
+
+@pytest.mark.parametrize(
+    "weights,kw", EVALUATE_CASES,
+    ids=["%s-%s" % (w, "-".join("%s%s" % i for i in kw.items()))
+         for w, kw in EVALUATE_CASES])
+def test_evaluate_per_trace_matches_per_tick_reference(weights, kw,
+                                                       weight_files):
+    """The port scores each trace's windows in one call; the reference
+    scores them a tick at a time with its NumpyScorer."""
+    path = weight_files[weights]
+    want = ref_train.evaluate(path, **kw)
+    assert port_train.evaluate(path, device="cpu", **kw) == want
+
+
+@pytest.mark.parametrize("kw,rows", [
+    (dict(n_traces=5, seed=1), 45),
+    (dict(n_traces=5, seed=1, healthy_ticks=0), 5),
+    (dict(n_traces=5, seed=1, healthy_ticks=3, ramp=4), 0),
+])
+def test_evaluate_scores_each_trace_in_one_call(monkeypatch, kw, rows):
+    """One score_many call per trace that has a ready window, of all its
+    ready windows, and no score() call a tick."""
+    calls: list[int] = []
+
+    class Counting(port_train.TorchScorer):
+        def score(self, window):
+            raise AssertionError("evaluate scored a single tick")
+
+        def score_many(self, windows):
+            calls.append(len(windows))
+            return super().score_many(windows)
+
+    monkeypatch.setattr(port_train, "TorchScorer", Counting)
+    port_train.evaluate(device="cpu", **kw)
+    assert calls == ([rows] * kw["n_traces"] if rows else [])
 
 
 def test_export_round_trips_and_is_deterministic(tmp_path):
